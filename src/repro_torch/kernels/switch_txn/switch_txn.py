@@ -1,0 +1,159 @@
+"""Launchers of the switch-transaction CUDA kernels, and their plain
+PyTorch versions.
+
+``switch_txn_call`` replaces ``repro/kernels/switch_txn/switch_txn.py::
+switch_txn_call`` (Pallas ``_kernel``) and ``result_gather_call`` replaces
+``result_gather_call`` (``_gather_kernel``).  Each launcher takes int32,
+contiguous, 1-D tensors: a CUDA tensor always goes to the hand-written
+kernel in ``csrc/switch_txn.cu`` (built at first use by ``build.py``), a
+CPU tensor to the plain version below.  There is no fallback: a failed
+build or launch raises.  ``LAUNCHES`` counts kernel launches only.
+
+The register file is updated IN PLACE — the port's stand-in for JAX's
+buffer donation — so callers copy it where they need an old state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+NOP, READ, WRITE, ADD, CADD = 0, 1, 2, 3, 4
+
+LAUNCHES = {"switch_txn": 0, "result_gather": 0}
+
+
+def _check(name: str, t, n=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    if t.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if n is not None and t.shape[0] != n:
+        raise ValueError(f"{name}: expected length {n}, got {t.shape[0]}")
+
+
+def _same_device(*ts):
+    dev = ts[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    for t in ts[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    return dev
+
+
+def _raise_on(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound (JAX int32 rule)."""
+    return (((x + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31).to(torch.int32)
+
+
+# ------------------------------------------------------------ switch_txn --
+
+def _sort_key(registers_flat, op, g):
+    """Per-instruction sort key: the slot clamped into the register file,
+    or ``n_slots`` for a NOP (a NOP touches no register, so the bucket
+    padding never forms one long segment at slot 0)."""
+    n_slots = registers_flat.shape[0]
+    return torch.where(op == NOP, n_slots, g.clamp(0, n_slots - 1))
+
+
+def switch_txn_plain(registers_flat, op, g, val):
+    """Plain version of the switch_txn kernel: the reference kernel's serial
+    walk over the stream in order (``repro/kernels/switch_txn/
+    switch_txn.py:37-51``), on host copies; slots clamp into the file.
+    Updates ``registers_flat`` in place and returns (registers_flat,
+    res [N], ok [N] int32)."""
+    n_slots = registers_flat.shape[0]
+    flat = registers_flat.cpu().numpy().copy()
+    ops_, gs, vals = (t.cpu().numpy() for t in (op, g, val))
+    res = np.zeros(ops_.shape[0], np.int32)
+    ok = np.ones(ops_.shape[0], np.int32)
+    for i in range(ops_.shape[0]):
+        o = int(ops_[i])
+        if o == NOP:                          # res 0, ok 1, no register
+            continue
+        s, v = min(max(int(gs[i]), 0), n_slots - 1), int(vals[i])
+        cur = int(flat[s])
+        post = ((cur + v + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+        new = (v if o == WRITE else
+               post if o == ADD or (o == CADD and post >= 0) else cur)
+        res[i] = cur if o == READ else new
+        ok[i] = post >= 0 if o == CADD else 1
+        flat[s] = new
+    registers_flat.copy_(torch.from_numpy(flat))
+    dev = registers_flat.device
+    return (registers_flat, torch.from_numpy(res).to(dev),
+            torch.from_numpy(ok).to(dev))
+
+
+def switch_txn_call(registers_flat, op, g, val):
+    """registers_flat: [n_slots] int32, updated in place; op/g/val: [N]
+    int32.  Returns (registers_flat, res [N], ok [N] int32)."""
+    _check("registers_flat", registers_flat)
+    _check("op", op)
+    n = op.shape[0]
+    _check("g", g, n)
+    _check("val", val, n)
+    if registers_flat.shape[0] < 1:
+        raise ValueError("registers_flat is empty")
+    dev = _same_device(registers_flat, op, g, val)
+    if dev.type == "cpu":
+        return switch_txn_plain(registers_flat, op, g, val)
+    res = torch.empty(n, dtype=torch.int32, device=dev)
+    ok = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return registers_flat, res, ok
+    from repro_torch.kernels.switch_txn.build import library
+    lib = library()
+    # the permutation the kernel walks: stream positions in stable slot
+    # order (the TPU kernel needs none — its grid walks the stream in order)
+    sorted_slot, perm = torch.sort(_sort_key(registers_flat, op, g),
+                                   stable=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.switch_txn_launch(registers_flat.data_ptr(),
+                                registers_flat.shape[0], op.data_ptr(),
+                                val.data_ptr(), sorted_slot.data_ptr(),
+                                perm.data_ptr(), res.data_ptr(),
+                                ok.data_ptr(), n, stream)
+    _raise_on(err, "switch_txn")
+    LAUNCHES["switch_txn"] += 1
+    return registers_flat, res, ok
+
+
+# --------------------------------------------------------- result_gather --
+
+def result_gather_plain(src, idx):
+    """Plain PyTorch version: out[i] = src[clamp(idx[i], 0, n-1)]."""
+    return src[idx.clamp(0, src.shape[0] - 1).long()]
+
+
+def result_gather_call(src, idx):
+    """Result-compaction gather: src [N] int32, idx [M] int32.  Returns
+    out [M] int32 with out[i] = src[clamp(idx[i], 0, N-1)]."""
+    _check("src", src)
+    _check("idx", idx)
+    if src.shape[0] < 1:
+        raise ValueError("src is empty")
+    dev = _same_device(src, idx)
+    if dev.type == "cpu":
+        return result_gather_plain(src, idx)
+    m = idx.shape[0]
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    from repro_torch.kernels.switch_txn.build import library
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.result_gather_launch(src.data_ptr(), src.shape[0],
+                                   idx.data_ptr(), out.data_ptr(), m, stream)
+    _raise_on(err, "result_gather")
+    LAUNCHES["result_gather"] += 1
+    return out
