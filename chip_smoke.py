@@ -7,14 +7,27 @@ Phases (each one exits non-zero on failure):
 1. device   — the card's name and power limit;
 2. build    — compile the switch_txn kernels from ``src/repro_torch``;
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the hot path's shapes, timed with CUDA events;
+              the hot path's shapes, timed with CUDA events; scan_prune
+              also over the whole 24 x 65536 register file at several
+              selectivities and caps;
 4. main     — P4DB's hot-transaction path at full width: an 8-node YCSB-A
               cluster on a 24 x 65536 switch register file in ``pallas``
               mode, 8 ``run_batch`` calls of 256 txns, held against the
               same txns through a CPU port cluster, then crash recovery;
-5. cadd     — SmallBank without ADDP (CADD constraints) on the card against
-              the CPU port;
-6. profile  — one more YCSB batch under ``torch.profiler`` for the device's
+5. reads    — the read tier on that cluster: ``read_batch`` over 8 x 256
+              YCSB-C txns and ``Cluster.scan`` over its hot keys, against
+              the CPU port cluster;
+6. scan     — a 4096-hot-key scan cluster (values 3i + 7): a selectivity
+              sweep and ``limit`` scans against the CPU port cluster and
+              a host filter, with the shipped-row bound;
+7. sharded  — the scan cluster and 2 x 256 YCSB-A txns at
+              ``n_switches=2`` against ``n_switches=1``;
+8. async    — ``read_batch`` on an ``async_hot`` cluster with undrained
+              groups in flight, against the CPU port;
+9. cadd     — SmallBank without ADDP (CADD constraints) on the card in
+              ``pallas`` mode and in ``auto`` mode (the serial engine),
+              against the CPU port;
+10. profile — one more YCSB batch under ``torch.profiler`` for the device's
               busy share.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
@@ -172,6 +185,101 @@ def kernel_checks(tk, lib, dev):
     ]
 
 
+def scan_kernel_checks(tk, lib, dev):
+    """scan_prune against its plain version over the whole register file
+    (every selectivity x cap exactly), then timed at the scan cluster's
+    shape (phase 6: 4096 hot keys, the 16-row first pass) and at full
+    width."""
+    from repro_torch.kernels.switch_txn import ops as tops
+    rng = np.random.default_rng(SEED + 10)
+    n_slots = S * R
+    regs = rng.integers(-2**30, 2**30, n_slots).astype(np.int32)
+    regs[rng.choice(n_slots, 64, replace=False)] = np.repeat(
+        [2**31 - 1, -2**31], 32)                          # int32 edges
+    regs_t = torch.tensor(regs, device=dev).reshape(S, R)
+    perm_t = torch.tensor(rng.permutation(n_slots).astype(np.int32),
+                          device=dev)
+    src = tops.gather_results(regs_t, perm_t)             # [1,572,864]
+    q = np.sort(regs)
+    frac = lambda f: (int(q[0]), int(q[max(0, int(f * n_slots) - 1)]))
+    ranges = {"lo>hi": (5, -5), "between values": (2**30, 2**31 - 2),
+              "1%": frac(0.01), "5%": frac(0.05), "25%": frac(0.25),
+              "all": (-2**31, 2**31 - 1)}
+    err, lines = 0, []
+    for name, (lo, hi) in ranges.items():
+        count = int(((src >= lo) & (src <= hi)).sum())
+        for cap in sorted({16, count, n_slots}):
+            got = tk.scan_prune_call(src, lo, hi, cap)
+            want = tk.scan_prune_plain(src, lo, hi, cap)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                check(torch.equal(a, b), f"scan_prune differs from plain "
+                      f"({name}, cap {cap})")
+                if a.numel():
+                    err = max(err, int((a.long() - b.long()).abs().max()))
+            check(int(got[2][0]) == count, f"scan_prune count ({name})")
+        lines.append(f"{name} {count}")
+    wrapped = int(tk.scan_prune_call(src, -2**31, 2**31 - 1, 1)[2][1])
+    exact = int(src.long().sum())
+    check(wrapped == ((exact + 2**31) % 2**32) - 2**31,
+          "scan_prune sum does not wrap like int32")
+
+    def timings(stream, lo, hi, cap, inner):
+        m = stream.shape[0]
+        ms = time_cuda(lambda: tk.scan_prune_call(stream, lo, hi, cap),
+                       inner=inner, reps=11)
+        plain = time_cuda(lambda: tk.scan_prune_plain(stream, lo, hi, cap),
+                          inner=max(inner // 10, 2), reps=5)
+        vals, idx, agg = (torch.zeros(cap, dtype=torch.int32, device=dev),
+                          torch.full((cap,), -1, dtype=torch.int32,
+                                     device=dev),
+                          torch.zeros(4, dtype=torch.int32, device=dev))
+        n_scratch = lib.scan_prune_scratch_len(m)
+        scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+        stream_h = torch.cuda.current_stream(dev).cuda_stream
+        check(lib.scan_prune_launch(
+            stream.data_ptr(), m, lo, hi, cap, vals.data_ptr(),
+            idx.data_ptr(), agg.data_ptr(), scratch.data_ptr(),
+            n_scratch - 1, stream_h) != 0,
+            "scan_prune_launch accepted a scratch buffer one short")
+        bare = time_cuda(lambda: lib.scan_prune_launch(
+            stream.data_ptr(), m, lo, hi, cap, vals.data_ptr(),
+            idx.data_ptr(), agg.data_ptr(), scratch.data_ptr(), n_scratch,
+            stream_h), inner=inner, reps=11)
+        # the stream read once, cap (value, position) rows and 4
+        # aggregates written; two compares per element
+        b, by = bound_ms(4 * m + 8 * cap + 16, 2 * m)
+        return ms, plain, bare, b, by
+
+    # the scan cluster's shape: 4096 gathered hot values, 5% selected,
+    # the 16-row first pass of Cluster.scan
+    small = src[:4096].contiguous()
+    sq = np.sort(small.cpu().numpy())
+    lo_s, hi_s = int(sq[0]), int(sq[int(0.05 * 4096) - 1])
+    ms, plain, bare, b, by = timings(small, lo_s, hi_s, 16, inner=200)
+    fw = timings(src, *ranges["5%"], 16, inner=50)
+    fw_all = timings(src, *ranges["all"], n_slots, inner=20)
+    print(f"kernels: scan_prune equal to plain over {n_slots} slots "
+          f"(matches: {', '.join(lines)}; caps 16 / exact / M); at M=4096 "
+          f"cap 16: {ms * 1e3:.2f} us/call (bare {bare * 1e3:.2f} us, plain "
+          f"{plain * 1e3:.2f} us, bound {b * 1e3:.4f} us); full width 5% "
+          f"cap 16: {fw[0] * 1e3:.2f} us (bare {fw[2] * 1e3:.2f} us, plain "
+          f"{fw[1] * 1e3:.2f} us, bound {fw[3] * 1e3:.3f} us); full width "
+          f"all, cap M: {fw_all[0] * 1e3:.2f} us (bare "
+          f"{fw_all[2] * 1e3:.2f} us, plain {fw_all[1] * 1e3:.2f} us, bound "
+          f"{fw_all[3] * 1e3:.3f} us)", flush=True)
+    full = lambda t, sel, cap: dict(selectivity=sel, cap=cap, ms=t[0],
+                                    plain_ms=t[1], kernel_ms=t[2],
+                                    bound_ms=t[3], bound_by=t[4])
+    return dict(name="scan_prune", route="cuda",
+                source="src/repro_torch/kernels/switch_txn/csrc/switch_txn.cu",
+                replaces="src/repro/kernels/switch_txn/switch_txn.py:105",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None, kernel_ms=bare,
+                shape=[4096, 16],
+                full_width=[full(fw, "5%", 16), full(fw_all, "all", n_slots)])
+
+
 # ---------------------------------------------------------------- phase 4 --
 
 def _wal_heads(c):
@@ -216,7 +324,7 @@ def main_path(tk, label):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = dict(tk.LAUNCHES)
-    check(all(v > 0 for v in launches.values()),
+    check(launches["switch_txn"] > 0 and launches["result_gather"] > 0,
           f"a kernel was not launched on the main path: {launches}")
     check(gpu.switch.dispatch_count == launches["switch_txn"],
           "dispatches and switch_txn launches disagree")
@@ -252,10 +360,247 @@ def main_path(tk, label):
           + f", rest {total - sum(spans.values()):.4f}", flush=True)
     print(f"main: crash_switch_and_recover replayed {known}+{unknown} sends "
           f"in {t_rec:.2f} s, registers identical", flush=True)
-    return launches, gpu, txns, p
+    return launches, gpu, cpu, hi, p
 
 
 # ---------------------------------------------------------------- phase 5 --
+
+def _reset(tk):
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+
+
+def _scans_equal(a, b, cases, what):
+    for lo, hi, kw in cases:
+        check(a.scan(lo, hi, **kw) == b.scan(lo, hi, **kw),
+              f"{what}: scan({lo}, {hi}, {kw}) differs")
+
+
+def read_path(tk, gpu, cpu, hi):
+    """The read tier on the main-path cluster (after its recovery):
+    switch-served YCSB-C reads and pruned scans equal the CPU port."""
+    from repro_torch.workloads import ycsb
+    pc = ycsb.YCSBParams(variant="C")
+    txns = ycsb.generate(np.random.default_rng(SEED + 5), 8 * B, pc)
+    hot = sorted(hi.placement.slot)
+    cold = [k for t in txns for _, k, _ in t.ops if not hi.is_hot(k)][:40]
+    _reset(tk)
+    times = []
+    for b in range(8):
+        keys = [k for t in txns[b * B:(b + 1) * B] for _, k, _ in t.ops]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gpu.read_batch(keys)
+        times.append(time.perf_counter() - t0)
+        check(got == cpu.read_batch(keys), "reads: read_batch differs")
+    cases = [(0, 999, {}), (0, 99, {}), (500, 520, {}), (-5, -1, {}),
+             (0, 999, dict(limit=10)), (100, 900, dict(limit=50)),
+             (0, 999, dict(keys=hot[:50] + cold)),
+             (200, 800, dict(keys=hot[:50] + cold, limit=7))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo, hi_, kw in cases:
+        gpu.scan(lo, hi_, **kw)
+    t_scan = time.perf_counter() - t0
+    _scans_equal(gpu, cpu, cases, "reads")
+    launches = dict(tk.LAUNCHES)
+    check(launches["result_gather"] > 0 and launches["scan_prune"] > 0,
+          f"reads: a read-tier kernel was not launched: {launches}")
+    check(gpu.stats["switch_reads"] > 0, "reads: no switch-served reads")
+    print(f"reads: 8 read_batch of {len(keys)} YCSB-C keys "
+          f"({gpu.stats['switch_reads']} switch-served, "
+          f"{gpu.stats['store_reads']} from stores) equal to the CPU port, "
+          f"median {statistics.median(times) * 1e3:.3f} ms; {len(cases)} "
+          f"scans over {len(hot)} hot keys equal, {t_scan * 1e3:.3f} ms; "
+          f"launches {launches}",
+          flush=True)
+
+
+# ---------------------------------------------------------------- phase 6 --
+
+N_SCAN = 4096             # scan cluster hot keys (512 per node)
+
+
+def scan_cluster(n_switches, device, hi=None):
+    """bench_reads.py's scan cluster at full width: 4096 one-key hot
+    traces, values 3i + 7 loaded by all-WRITE hot run_batch calls."""
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import WRITE, SwitchConfig
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.db.txn import Txn, key_of, node_of
+    cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K,
+                       n_switches=n_switches)
+    keys = [key_of(i % 8, i) for i in range(N_SCAN)]
+    if hi is None:
+        hi = build_hot_index([[(k, "W")] for k in keys], N_SCAN, cfg)
+    c = Cluster(8, cfg, hi, switch_mode="pallas", device=device)
+    vals = {k: 3 * i + 7 for i, k in enumerate(keys)}
+    load = [Txn("load", [(WRITE, k, v)], node_of(k)) for k, v in vals.items()]
+    for i in range(0, N_SCAN, 1024):
+        c.run_batch(load[i:i + 1024])
+    c.snapshot_offload()
+    return c, hi, keys, vals
+
+
+def _sweep_cases():
+    out = []
+    for sel in (0.01, 0.05, 0.25, 1.0):
+        n_match = max(1, int(sel * N_SCAN))
+        out.append((sel, 7, 7 + 3 * (n_match - 1)))
+    return out
+
+
+def _truth(vals, lo, hi, limit=None):
+    m = [(k, v) for k, v in vals.items() if lo <= v <= hi]
+    if limit is not None and len(m) > limit:
+        m = sorted(m, key=lambda kv: (-kv[1], kv[0]))[:limit]
+    return sorted(m)
+
+
+def scan_path(tk):
+    t0 = time.perf_counter()
+    gpu, hi, keys, vals = scan_cluster(1, "cuda")
+    cpu, _, _, _ = scan_cluster(1, "cpu", hi)
+    print(f"scan: setup {time.perf_counter() - t0:.1f} s", flush=True)
+    check(gpu.read_batch(keys) == [vals[k] for k in keys],
+          "scan: loaded values differ")
+    rows = []
+    _reset(tk)
+    for sel, lo, hi_ in _sweep_cases():
+        before = gpu.stats["scan_rows_shipped"]
+        n0 = tk.LAUNCHES["scan_prune"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = gpu.scan(lo, hi_)
+        dt = time.perf_counter() - t1
+        shipped = gpu.stats["scan_rows_shipped"] - before
+        check(out == _truth(vals, lo, hi_), f"scan: {sel:.0%} differs "
+              "from the host filter")
+        check(shipped / N_SCAN <= sel + 16 / N_SCAN + 1e-9,
+              f"scan: {sel:.0%} shipped {shipped} rows")
+        rows.append(f"{sel:.0%}: {len(out)} rows, shipped {shipped}, "
+                    f"{tk.LAUNCHES['scan_prune'] - n0} launches, "
+                    f"{dt * 1e3:.3f} ms")
+    limits = ((7, 7 + 3 * 1023, 10), (7, 3 * N_SCAN + 7, 100))
+    for lo, hi_, lim in limits:
+        check(gpu.scan(lo, hi_, limit=lim) == _truth(vals, lo, hi_, lim),
+              "scan: limit scan differs from the host filter")
+    launches = dict(tk.LAUNCHES)
+    check(launches["scan_prune"] > 0, "scan: scan_prune not launched")
+    _scans_equal(gpu, cpu, [(lo, hi_, {}) for _, lo, hi_ in _sweep_cases()]
+                 + [(lo, hi_, dict(limit=lim)) for lo, hi_, lim in limits],
+                 "scan")
+    print(f"scan: {N_SCAN} hot keys, equal to the CPU port and the host "
+          f"filter; " + "; ".join(rows) + f"; launches {launches}",
+          flush=True)
+    return launches, gpu
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+def sharded_path(tk, scan1, p):
+    """n_switches=2 (two 24 x 65536 planes on the card) against
+    n_switches=1: the scan cluster's reads and scans, then 2 x 256 YCSB-A
+    txns (results, GIDs, per-key reads, WAL streams)."""
+    from repro_torch.core.engine import ShardedSwitchEngine
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import SwitchConfig
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import ycsb
+
+    t0 = time.perf_counter()
+    scan2, _, keys, vals = scan_cluster(2, "cuda")
+    check(isinstance(scan2.switch, ShardedSwitchEngine),
+          "sharded: n_switches=2 did not build the sharded plane")
+    check(scan2.read_batch(keys) == scan1.read_batch(keys),
+          "sharded: scan cluster reads differ")
+    cases = [(lo, hi_, {}) for _, lo, hi_ in _sweep_cases()] + \
+        [(7, 7 + 3 * 1023, dict(limit=10)), (7, 3 * N_SCAN + 7,
+                                             dict(limit=100))]
+    _scans_equal(scan2, scan1, cases, "sharded scan")
+    t_scan = time.perf_counter() - t0
+
+    sample = ycsb.generate(np.random.default_rng(SEED), 4000, p)
+    txns = ycsb.generate(np.random.default_rng(SEED + 3), 2 * B, p)
+    worlds = []
+    for n in (1, 2):
+        cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K,
+                           n_switches=n)
+        hi = build_hot_index(ycsb.traces(sample), top_k=400, switch=cfg)
+        c = Cluster(8, cfg, hi, switch_mode="pallas", device="cuda")
+        c.snapshot_offload()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = []
+        for b in range(2):
+            out += c.run_batch(copy.deepcopy(txns[b * B:(b + 1) * B]))
+        torch.cuda.synchronize()
+        worlds.append((c, hi, out, time.perf_counter() - t1))
+    (c1, hi1, r1, t1), (c2, hi2, r2, t2) = worlds
+    check(r1 == r2, "sharded: per-txn results differ")
+    check(c1.switch.next_gid == c2.switch.next_gid, "sharded: GIDs differ")
+    hot = sorted(hi1.placement.slot)
+    check(set(hot) == set(hi2.placement.slot), "sharded: hot sets differ")
+    check(c1.read_batch(hot) == c2.read_batch(hot),
+          "sharded: per-key reads differ")
+    check([c1.read(k) for k in hot[:20]] == [c2.read(k) for k in hot[:20]],
+          "sharded: point reads differ")
+    stream = lambda c: [[(e.kind, e.tid) for e in n.wal] for n in c.nodes]
+    check(stream(c1) == stream(c2), "sharded: WAL streams differ")
+    cross = sum(1 for t in txns if all(hi2.is_hot(k) for _, k, _ in t.ops)
+                and len({hi2.placement.slot[k][0] for _, k, _ in t.ops}) > 1)
+    print(f"sharded: scan cluster at n_switches=2 equal to n=1 "
+          f"({len(cases)} scans, {t_scan:.1f} s incl. setup); 2 x {B} "
+          f"YCSB-A txns equal (results, GIDs, reads, WAL streams); "
+          f"{cross} cross-shard hot rows; run_batch total n=1 {t1:.3f} s, "
+          f"n=2 {t2:.3f} s; dispatches per plane "
+          f"{[p_.dispatch_count for p_ in c2.switch.planes]}", flush=True)
+
+
+# ---------------------------------------------------------------- phase 8 --
+
+def async_read_path(tk, hi, p):
+    """read_batch on an async_hot cluster while hot groups are undrained:
+    equal to an async CPU port cluster at the same point (both drain at
+    the same points, so their WALs are comparable), and the in-flight
+    window untouched."""
+    from repro_torch.core.packets import SwitchConfig
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import ycsb
+    cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K)
+    ga = Cluster(8, cfg, hi, switch_mode="pallas", async_hot=True,
+                 max_inflight=4, device="cuda")
+    cs = Cluster(8, cfg, hi, switch_mode="pallas", async_hot=True,
+                 max_inflight=4, device="cpu")
+    for c in (ga, cs):
+        c.snapshot_offload()
+    txns = [t for t in ycsb.generate(np.random.default_rng(SEED + 4),
+                                     2 * B, p)
+            if all(hi.is_hot(k) for _, k, _ in t.ops)]
+    out_a, out_s = [], []
+    step = len(txns) // 3 + 1
+    for i in range(0, len(txns), step):
+        out_a.append(ga.run_batch(txns[i:i + step]))
+        out_s.append(cs.run_batch(copy.deepcopy(txns[i:i + step])))
+    n_parked = len(ga._inflight)
+    check(n_parked > 0 and len(cs._inflight) == n_parked,
+          "async: no undrained groups in flight")
+    hot = sorted(hi.placement.slot)
+    check(ga.read_batch(hot) == cs.read_batch(hot),
+          "async: read_batch with groups in flight differs from CPU port")
+    check(len(ga._inflight) == n_parked, "async: read_batch drained groups")
+    check(ga.scan(0, 999) == cs.scan(0, 999), "async: scan differs")
+    for c in (ga, cs):
+        c.drain()
+    check(out_a == out_s,
+          "async: per-txn results differ from CPU port")
+    _same_clusters(ga, cs, "async")
+    print(f"async: read_batch of {len(hot)} hot keys with {n_parked} "
+          f"undrained groups ({len(txns)} hot txns) equal to the CPU port; "
+          f"in-flight window untouched", flush=True)
+
+
+# ---------------------------------------------------------------- phase 9 --
 
 def cadd_path(tk):
     from repro_torch.core.hotset import build_hot_index
@@ -272,27 +617,39 @@ def cadd_path(tk):
                                           4 * B, p)
             if all(o != ADDP for o, _, _ in t.ops)]
     gpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cuda")
+    # auto mode sends every CADD group through the serial engine
+    auto = Cluster(8, cfg, hi, switch_mode="auto", device="cuda")
     cpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cpu")
-    for c in (gpu, cpu):
+    for c in (gpu, auto, cpu):
         for k in smallbank.hot_keys(p):
             c.load(k, 100)
         c.snapshot_offload()
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
-    out_gpu, out_cpu = [], []
-    for i in range(0, len(txns), B):
-        out_gpu += gpu.run_batch(txns[i:i + B])
+
+    def run(c):
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, len(txns), B):
+            out += c.run_batch(copy.deepcopy(txns[i:i + B]))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _reset(tk)
+    out_gpu, t_gpu = run(gpu)
     launches = dict(tk.LAUNCHES)
-    for i in range(0, len(txns), B):
-        out_cpu += cpu.run_batch(copy.deepcopy(txns[i:i + B]))
+    out_auto, t_auto = run(auto)
+    out_cpu, _ = run(cpu)
     check(launches["switch_txn"] > 0, "cadd: switch_txn not launched")
     check(out_gpu == out_cpu, "cadd: per-txn results differ from CPU port")
+    check(out_auto == out_cpu, "cadd: auto-mode results differ from CPU port")
     _same_clusters(gpu, cpu, "cadd")
+    _same_clusters(auto, cpu, "cadd auto")
     print(f"cadd: {len(txns)} SmallBank txns ({gpu.stats['hot']} hot) equal "
-          f"to the CPU port; launches {launches}", flush=True)
+          f"to the CPU port; launches {launches}; run_batch total pallas "
+          f"{t_gpu:.4f} s, auto (serial engine) {t_auto:.4f} s", flush=True)
 
 
-# ---------------------------------------------------------------- phase 6 --
+# --------------------------------------------------------------- phase 10 --
 
 def profile_batch(gpu, p):
     from torch.profiler import ProfilerActivity, profile
@@ -352,9 +709,15 @@ def main():
           flush=True)
 
     kernels = kernel_checks(tk, lib, dev)
-    launches, gpu, _, p = main_path(tk, smi)
+    kernels.append(scan_kernel_checks(tk, lib, dev))
+    launches, gpu, cpu, hi, p = main_path(tk, smi)
+    read_path(tk, gpu, cpu, hi)
+    scan_launches, scan_gpu = scan_path(tk)
+    launches["scan_prune"] = scan_launches["scan_prune"]
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]
+    sharded_path(tk, scan_gpu, p)
+    async_read_path(tk, hi, p)
     cadd_path(tk)
     profile_batch(gpu, p)
 

@@ -24,18 +24,20 @@ def convert_state(registers: np.ndarray,
                   placement: Mapping[int, Tuple[int, ...]],
                   stores: Sequence[Mapping[int, int]],
                   device=None):
-    """registers: [S, R] int32 host array; placement: ``{key: (switch,
-    stage, reg)}`` (or legacy ``(stage, reg)``); stores: one ``{key:
-    value}`` mapping per node; device: ``None`` -> ``cuda``, which must
-    exist (pass ``"cpu"`` explicitly for the plain versions).
+    """registers: [S, R] int32 host array, or the [N, S, R] stack a
+    sharded reference engine's ``read_all()`` gives; placement: ``{key:
+    (switch, stage, reg)}`` (or legacy ``(stage, reg)``); stores: one
+    ``{key: value}`` mapping per node; device: ``None`` -> ``cuda``, which
+    must exist (pass ``"cpu"`` explicitly for the plain versions).
 
-    Returns ``(registers [S, R] int32 tensor on device, HotIndex,
-    [defaultdict(int) per node])``; nothing aliases the inputs."""
+    Returns ``(registers [S, R] or [N, S, R] int32 tensor on device,
+    HotIndex, [defaultdict(int) per node])``; nothing aliases the
+    inputs."""
     device = resolve_device(device)
     regs = np.asarray(registers)
-    if regs.ndim != 2:
-        raise ValueError(f"expected an [S, R] register file, got "
-                         f"{regs.shape}")
+    if regs.ndim not in (2, 3):
+        raise ValueError(f"expected an [S, R] register file or an "
+                         f"[N, S, R] stack, got {regs.shape}")
     if regs.dtype != np.int32:
         raise TypeError(f"expected int32 registers, got {regs.dtype}")
     regs_t = torch.tensor(regs, dtype=torch.int32, device=device)

@@ -16,6 +16,10 @@ calls.  Execution paths, with the reference's mode names:
   pallas  — the hand-written CUDA kernels of ``kernels/switch_txn`` (the
             name is kept so every caller validates exactly as before).
 
+The read tier (``execute_reads``, ``execute_scan``) answers from the same
+resident registers through the gather and scan-prune kernels, and
+``ShardedSwitchEngine`` runs N such planes on one device.
+
 The register file is an int32 tensor updated IN PLACE by every engine —
 the port's replacement for the reference's buffer donation
 (``repro/core/engine.py:265``).  Every path that hands registers out or
@@ -36,9 +40,12 @@ import torch
 
 from repro_torch.core.packets import (ADD, ADDP, CADD, NOP, READ, WRITE,
                                       PacketStager, ReadPacket,
-                                      SwitchConfig, result_plane)
+                                      SwitchConfig, result_plane,
+                                      scan_flags, shard_rows)
 from repro_torch.kernels.switch_txn import ops as ktx
-from repro_torch.kernels.switch_txn.switch_txn import _wrap32
+from repro_torch.kernels.switch_txn.switch_txn import (AGG_MAX_EMPTY,
+                                                       AGG_MIN_EMPTY,
+                                                       _wrap32)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,39 +83,51 @@ def _sync(device: torch.device):
 def _serial_engine_impl(registers, op, stage, reg, val):
     """Oracle: sequential execution of the [B, K] instruction stream in
     (txn, instr) order.  Handles every opcode; ADDP adds the result of an
-    earlier instruction of the same txn.  Updates ``registers`` in place."""
+    earlier instruction of the same txn.  Updates ``registers`` in place.
+
+    Values never leave the registers' device, and only the slots the
+    stream names are read and written: the loop follows a host copy of
+    the (small) instruction stream, and each instruction is a few scalar
+    tensor ops on a gathered copy of the touched slots, scattered back at
+    the end."""
     S, R = registers.shape
     B, K = op.shape
     n_slots = S * R
-    flat = registers.cpu().numpy().reshape(-1).astype(np.int64)
-    ops_ = op.cpu().numpy()
-    g = stage.cpu().numpy().astype(np.int64) * R + reg.cpu().numpy()
-    vals = val.cpu().numpy()
-    results = np.zeros((B, K), np.int64)
-    ok = np.ones((B, K), bool)
-    for b in range(B):
-        for k in range(K):
-            o = int(ops_[b, k])
-            if o == NOP:
-                continue
-            gi, v = int(g[b, k]), int(vals[b, k])
-            cur = int(flat[min(max(gi, 0), n_slots - 1)])
-            addend = int(results[b, min(max(v, 0), K - 1)]) if o == ADDP \
-                else v
-            post = ((cur + addend + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
-            cadd_ok = post >= 0
-            new = (v if o == WRITE else
-                   post if o in (ADD, ADDP) or (o == CADD and cadd_ok)
-                   else cur)
-            results[b, k] = cur if o == READ else new
-            ok[b, k] = cadd_ok if o == CADD else True
-            if 0 <= gi < n_slots:          # out-of-range writes drop
-                flat[gi] = new
     dev = registers.device
-    registers.copy_(torch.from_numpy(flat.reshape(S, R)).to(torch.int32))
-    return (registers,
-            torch.from_numpy(results).to(dev, torch.int32),
-            torch.from_numpy(ok).to(dev))
+    ops_, stage_, reg_, vals = (
+        torch.stack((op, stage, reg, val)).cpu().numpy().reshape(4, -1))
+    g = stage_.astype(np.int64) * R + reg_
+    live = np.flatnonzero(ops_ != NOP)
+    slots, loc = np.unique(np.clip(g[live], 0, n_slots - 1),
+                           return_inverse=True)
+    slots_t = torch.from_numpy(slots).to(dev)
+    flat = registers.view(-1)
+    cur = flat[slots_t]                     # [U] the touched slots
+    results = torch.zeros(B * K, dtype=torch.int32, device=dev)
+    ok = torch.ones(B * K, dtype=torch.bool, device=dev)
+    for i, j in zip(live.tolist(), loc.reshape(-1).tolist()):
+        o, v, gi = int(ops_[i]), int(vals[i]), int(g[i])
+        c = cur[j]                          # 0-d view of the slot's value
+        keep = 0 <= gi < n_slots            # out-of-range writes drop
+        if o == READ:
+            results[i] = c
+            continue
+        if o == WRITE:
+            results[i] = v
+            if keep:
+                c.fill_(v)
+            continue
+        addend = results[i - i % K + min(max(v, 0), K - 1)] \
+            if o == ADDP else v
+        post = _wrap32(c.to(torch.int64) + addend)
+        if o == CADD:
+            ok[i] = post >= 0
+            post = torch.where(ok[i], post, c)
+        results[i] = post
+        if keep:
+            c.copy_(post)
+    flat[slots_t] = cur
+    return registers, results.view(B, K), ok.view(B, K)
 
 
 # ------------------------------------------------------------- affine ----
@@ -437,7 +456,6 @@ class SwitchEngine:
         op_np = np.asarray(pkts["op"], np.int32)
         B, K = op_np.shape
         if meta is None:
-            from repro_torch.core.packets import scan_flags
             meta = scan_flags(pkts)
         mode = self._resolve_mode(mode, meta["has_cadd"], meta["has_addp"],
                                   meta["addp_unsafe"])
@@ -507,10 +525,32 @@ class SwitchEngine:
 
     def execute_scan(self, rp: ReadPacket, lo: int, hi: int,
                      cap: Optional[int] = None, k: Optional[int] = None):
-        """Switch-side pruned scan — not ported yet."""
-        raise NotImplementedError(
-            "execute_scan (scan_prune kernel) is not ported yet: ROADMAP "
-            "Queue 1 item 4 and Queue 2 kernel 3")
+        """Switch-side pruned scan over a READ-only slot set: gather the
+        slots, filter by ``lo <= v <= hi`` on device, ship only the
+        surviving rows (the kernels/switch_txn scan-prune path).
+
+        Exactly one of ``cap``/``k``: ``cap`` returns the first ``cap``
+        survivors in slot order plus (count, sum, min, max) aggregates;
+        ``k`` returns the k largest in-range values (ties toward the
+        lower slot position) plus the match count.  Returns host arrays
+        ``(vals, pos, agg_or_count)`` where ``pos`` indexes into ``rp``'s
+        key order; like ``execute_reads`` the device call runs on the
+        FIFO dispatch thread, so it observes every earlier write without
+        a result-plane drain."""
+        if (cap is None) == (k is None):
+            raise ValueError("exactly one of cap/k")
+        idx = self._put(rp.flat_idx(self.cfg))
+
+        def job():
+            if k is not None:
+                return ktx.scan_topk(self.registers, idx, lo, hi, k=k)
+            return ktx.scan_prune(self.registers, idx, lo, hi, cap=cap)
+
+        self.read_dispatch_count += 1
+        out, _ = self._submit(job, defer=False)
+        vals, pos, tail = out
+        return (vals.cpu().numpy(), pos.cpu().numpy(),
+                tail.cpu().numpy() if k is None else int(tail))
 
     def read_all(self) -> np.ndarray:
         """A host copy of the [S, R] register file."""
@@ -544,9 +584,397 @@ class SwitchEngine:
 
 
 class ShardedSwitchEngine:
-    """N-switch register plane — not ported yet."""
+    """N-switch register plane: one ``SwitchEngine`` per shard, each with
+    its own register tensor and its own dispatch thread, all on the one
+    device the engine was given (the reference pins each plane to its own
+    JAX device when several exist; the port keeps every plane on the
+    cluster's card).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ShardedSwitchEngine (n_switches > 1) is not ported yet: "
-            "ROADMAP Queue 1 item 6")
+    A batch arrives with the global-stage encoding (``stage = switch *
+    n_stages + stage``; see ``packets.build_packets``).  Rows that live
+    entirely on one shard are grouped per shard — preserving per-shard
+    admission order — and dispatched per shard (different shards touch
+    disjoint registers, so their rows commute in the serial order).  A
+    cross-shard row is a barrier: pending groups flush first, then its ops
+    execute one mini-dispatch at a time in slot order, forwarding ADDP
+    operands across shards on the host (the model of an inter-switch hop
+    per dependency).
+
+    The facade owns the GLOBAL gid sequence — sub-dispatches receive their
+    rows' ids explicitly — so results, WAL entries and recovery replay
+    order are identical to a single switch executing the same admission
+    order.  With ``n_switches == 1`` every call delegates verbatim to the
+    single plane: the sharded path is byte-identical to ``SwitchEngine``
+    by construction."""
+
+    def __init__(self, cfg: SwitchConfig, registers=None,
+                 stager_pool: int = 4, async_dispatch: bool = False,
+                 device=None):
+        from dataclasses import replace
+        self.cfg = cfg
+        self.n = cfg.n_switches
+        self.device = resolve_device(device)
+        self.async_dispatch = bool(async_dispatch)
+        self.next_gid = 0
+        plane_cfg = replace(cfg, n_switches=1)
+        regs = None
+        if registers is not None:
+            regs = registers if isinstance(registers, torch.Tensor) \
+                else np.asarray(registers)
+            if regs.ndim == 2:
+                regs = regs[None] if self.n == 1 else None
+            if regs is None or regs.shape[0] != self.n:
+                raise ValueError("registers must be [n_switches, S, R]")
+        self.planes = [
+            SwitchEngine(plane_cfg,
+                         registers=None if regs is None else regs[i],
+                         stager_pool=stager_pool,
+                         async_dispatch=async_dispatch, device=self.device)
+            for i in range(self.n)
+        ]
+
+    # ------------------------------------------------------- bookkeeping --
+    @property
+    def dispatch_count(self) -> int:
+        return sum(p.dispatch_count for p in self.planes)
+
+    @property
+    def read_dispatch_count(self) -> int:
+        return sum(p.read_dispatch_count for p in self.planes)
+
+    @property
+    def registers(self):
+        """The plane's register tensor with one shard; an [N, S, R] copy
+        on the engine's device otherwise."""
+        if self.n == 1:
+            return self.planes[0].registers
+        self._join()
+        return torch.stack([p.registers for p in self.planes])
+
+    @registers.setter
+    def registers(self, values):
+        self.load_registers(values)
+
+    def _join(self):
+        for p in self.planes:
+            p._join()
+
+    # --------------------------------------------------------- execution --
+    def execute(self, pkts: Dict[str, np.ndarray], mode: str = "auto"
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        pb = self.execute_batch(pkts, meta=None, mode=mode)
+        return pb.results_np(), np.asarray(pb.ok_np()), pb.gids
+
+    def execute_batch(self, pkts: Dict[str, np.ndarray],
+                      meta: Optional[dict] = None, mode: str = "auto",
+                      defer: bool = False, gids=None):
+        if self.n == 1:
+            pb = self.planes[0].execute_batch(pkts, meta, mode=mode,
+                                              defer=defer, gids=gids)
+            self.next_gid = self.planes[0].next_gid
+            return pb
+        op_np = np.asarray(pkts["op"], np.int32)
+        B, K = op_np.shape
+        if meta is None:
+            meta = scan_flags(pkts)
+        shard = meta.get("shard")
+        if shard is None:
+            shard = shard_rows(pkts, self.cfg)
+        # one mode for the whole batch, resolved exactly like the single
+        # switch would (explicit modes validate against whole-batch flags)
+        mode = SwitchEngine._resolve_mode(
+            mode, meta["has_cadd"], meta["has_addp"], meta["addp_unsafe"])
+        if gids is None:
+            gids = np.arange(self.next_gid, self.next_gid + B,
+                             dtype=np.int64)
+        else:
+            gids = np.asarray(gids, np.int64)
+        if B == 0:
+            return PendingBatch(np.zeros((0, K), np.int32),
+                                np.zeros((0, K), bool),
+                                np.zeros(0, np.int32), gids, 0, K,
+                                np.zeros((0, K), np.int32),
+                                np.zeros(0, np.int32), mode)
+        self.next_gid = max(self.next_gid, int(gids.max()) + 1)
+
+        stage_np = np.asarray(pkts["stage"], np.int32)
+        reg_np = np.asarray(pkts["reg"], np.int32)
+        val_np = np.asarray(pkts["operand"], np.int32)
+        S = self.cfg.n_stages
+        flags = dict(has_cadd=meta["has_cadd"], has_addp=meta["has_addp"],
+                     addp_unsafe=meta["addp_unsafe"])
+        parts = []
+        pend: Dict[int, list] = {}
+
+        def flush():
+            for sw in sorted(pend):
+                ridx = np.asarray(pend[sw])
+                sub_op = op_np[ridx]
+                # global stage -> this shard's local pipeline stage
+                sub = dict(op=sub_op,
+                           stage=np.where(sub_op != NOP,
+                                          stage_np[ridx] - sw * S,
+                                          0).astype(np.int32),
+                           reg=reg_np[ridx], operand=val_np[ridx])
+                base, idx = result_plane(sub)
+                sub_meta = dict(flags, res_base=base, gather_idx=idx)
+                pb = self.planes[sw].execute_batch(
+                    sub, sub_meta, mode=mode,
+                    defer=self.async_dispatch, gids=gids[ridx])
+                parts.append((ridx, pb, None, None))
+            pend.clear()
+
+        for i in range(B):
+            sh = int(shard[i])
+            if sh >= 0:
+                pend.setdefault(sh, []).append(i)
+                continue
+            flush()        # barrier: a cross-shard row sees every earlier
+            res_row, ok_row = self._exec_cross_row(   # row's effects
+                op_np[i], stage_np[i], reg_np[i], val_np[i], int(gids[i]))
+            parts.append((np.array([i]), None, res_row, ok_row))
+        flush()
+
+        handle = _MergedBatch(gids, B, K, parts, mode, self.device)
+        if not defer and self.async_dispatch:
+            handle.block()     # non-deferred contract: work is done on
+        return handle          # return, matching SwitchEngine._submit
+
+    def _exec_cross_row(self, op, stage, reg, val, gid):
+        """Execute one cross-shard packet op-by-op in slot order: each op
+        is a B=1 serial mini-dispatch on its shard, and ADDP operands are
+        resolved on the host from the already-known earlier results (the
+        inter-switch result forwarding a real deployment would do with a
+        recirculating hop per dependency)."""
+        K = len(op)
+        S = self.cfg.n_stages
+        res = np.zeros(K, np.int32)
+        ok = np.ones(K, bool)
+        for k in range(K):
+            o = int(op[k])
+            if o == NOP:
+                continue
+            sw, s_loc = divmod(int(stage[k]), S)
+            v = int(val[k])
+            if o == ADDP:       # source result is already materialized:
+                o, v = ADD, int(res[min(max(int(val[k]), 0), K - 1)])
+            mini = dict(op=np.array([[o]], np.int32),
+                        stage=np.array([[s_loc]], np.int32),
+                        reg=np.array([[int(reg[k])]], np.int32),
+                        operand=np.array([[v]], np.int32))
+            pb = self.planes[sw].execute_batch(
+                mini, mode="serial", gids=np.array([gid], np.int64))
+            res[k] = int(pb.results_np()[0, 0])
+            ok[k] = bool(pb.ok_np()[0, 0])
+        return res, ok
+
+    def execute_reads(self, rp: ReadPacket, mode: str = "auto",
+                      defer: bool = False):
+        """Sharded read path: split the READ-only batch by shard, gather
+        each shard's values on its own plane (its own dispatch thread),
+        scatter back to key order on drain.  Reads touch disjoint
+        registers per shard and modify nothing, so no cross-shard barrier
+        exists — each key lives on exactly one shard."""
+        if self.n == 1:
+            return self.planes[0].execute_reads(rp, mode=mode, defer=defer)
+        M = rp.n
+        if M == 0:
+            return PendingRead(np.zeros(0, np.int32), 0)
+        parts = []
+        for sw in range(self.n):
+            pos = np.flatnonzero(rp.switch == sw)
+            if not len(pos):
+                continue
+            sub = ReadPacket(switch=np.zeros(len(pos), np.int32),
+                             stage=rp.stage[pos], reg=rp.reg[pos])
+            # defer per shard even on a sync call: the shards gather
+            # concurrently; _MergedRead's materialization joins them
+            pr = self.planes[sw].execute_reads(
+                sub, mode=mode, defer=self.async_dispatch)
+            parts.append((pos, pr))
+        handle = _MergedRead(M, parts)
+        if not defer and self.async_dispatch:
+            handle.block()
+        return handle
+
+    def execute_scan(self, rp: ReadPacket, lo: int, hi: int,
+                     cap: Optional[int] = None, k: Optional[int] = None):
+        """Sharded pruned scan: each shard filters its own slots on its
+        own plane, ships ≤ cap (or k) survivors, and the host merges by
+        global key position — the per-shard prefix property makes the
+        merge exact (the global first-``cap`` survivors are a union of
+        per-shard survivor prefixes, so no shard can hide one)."""
+        if self.n == 1:
+            return self.planes[0].execute_scan(rp, lo, hi, cap=cap, k=k)
+        if (cap is None) == (k is None):
+            raise ValueError("exactly one of cap/k")
+        cand_pos, cand_vals, aggs, total = [], [], [], 0
+        for sw in range(self.n):
+            pos = np.flatnonzero(rp.switch == sw)
+            if not len(pos):
+                continue
+            sub = ReadPacket(switch=np.zeros(len(pos), np.int32),
+                             stage=rp.stage[pos], reg=rp.reg[pos])
+            cc = None if cap is None else min(cap, len(pos))
+            kk = None if k is None else min(k, len(pos))
+            vals, p, tail = self.planes[sw].execute_scan(
+                sub, lo, hi, cap=cc, k=kk)
+            if cap is not None:
+                t = min(int(tail[0]), cc)
+                cand_pos.append(pos[p[:t]])
+                cand_vals.append(vals[:t])
+                aggs.append(tail)
+            else:
+                cand_pos.append(pos[p])
+                cand_vals.append(vals)
+                total += tail
+        gp = np.concatenate(cand_pos) if cand_pos else np.zeros(0, np.int32)
+        gv = np.concatenate(cand_vals) if cand_vals else np.zeros(0, np.int32)
+        if cap is not None:
+            order = np.argsort(gp, kind="stable")[:cap]
+            vals = np.zeros(cap, np.int32)
+            posg = np.full(cap, -1, np.int32)
+            vals[:len(order)] = gv[order]
+            posg[:len(order)] = gp[order]
+            if aggs:
+                a = np.stack(aggs)
+                agg = np.array([a[:, 0].sum(dtype=np.int32),
+                                a[:, 1].sum(dtype=np.int32),
+                                a[:, 2].min(), a[:, 3].max()], np.int32)
+            else:
+                agg = np.array([0, 0, AGG_MIN_EMPTY, AGG_MAX_EMPTY],
+                               np.int32)
+            return vals, posg, agg
+        # global top-k by (-value, global key position): the same tie rule
+        # the per-plane top-k applies
+        order = np.lexsort((gp, -gv.astype(np.int64)))[:k]
+        vals = np.full(k, AGG_MAX_EMPTY, np.int32)
+        posg = np.zeros(k, np.int32)
+        vals[:len(order)] = gv[order]
+        posg[:len(order)] = gp[order]
+        return vals, posg, int(total)
+
+    # ------------------------------------------------------ state access --
+    def read_all(self) -> np.ndarray:
+        """[S, R] with one shard, [N, S, R] stacked otherwise."""
+        if self.n == 1:
+            return self.planes[0].read_all()
+        return np.stack([p.read_all() for p in self.planes])
+
+    def snapshot(self):
+        if self.n == 1:
+            snap = self.planes[0].snapshot()
+            self.next_gid = self.planes[0].next_gid
+            return snap
+        return self.read_all(), self.next_gid
+
+    def restore(self, snap):
+        regs, gid = snap
+        if self.n == 1:
+            self.planes[0].restore(snap)
+        else:
+            for i, p in enumerate(self.planes):
+                p.restore((regs[i], gid))
+        self.next_gid = gid
+
+    def load_registers(self, values):
+        """Replace every plane's registers from an [N, S, R] host array or
+        tensor (or [S, R] with one shard); copies, never aliases."""
+        if not isinstance(values, torch.Tensor):
+            values = np.asarray(values)
+        if self.n == 1:
+            self.planes[0].load_registers(
+                values if values.ndim == 2 else values[0])
+            return
+        if values.ndim != 3 or values.shape[0] != self.n:
+            raise ValueError("expected [n_switches, S, R] register stack")
+        for i, p in enumerate(self.planes):
+            p.load_registers(values[i])
+
+    def read_value(self, slot) -> int:
+        sw, s, r = (0, *slot) if len(slot) == 2 else slot
+        return self.planes[sw].read_value((s, r))
+
+
+class _MergedRead:
+    """PendingRead-compatible handle over a sharded read gather: per-shard
+    value vectors scatter back into the caller's key order on drain."""
+
+    __slots__ = ("n", "_parts", "_np")
+
+    def __init__(self, n, parts):
+        self.n = n
+        self._parts = parts        # (positions [m], PendingRead)
+        self._np = None
+
+    def values_np(self) -> np.ndarray:
+        if self._np is None:
+            out = np.zeros(self.n, np.int32)
+            for pos, pr in self._parts:
+                out[pos] = pr.values_np()
+            self._np = out
+        return self._np
+
+    def block(self):
+        for _, pr in self._parts:
+            pr.block()
+        return self
+
+    def ready(self) -> bool:
+        return self._np is not None
+
+
+class _MergedBatch:
+    """PendingBatch-compatible handle over a sharded dispatch: the per-
+    shard sub-batches' compacted results scatter back into the caller's
+    [B, K] plane on drain; cross-shard rows carry their (already
+    materialized) per-op results inline.  Iteration yields
+    ``(results, ok, gids)`` with the two planes as tensors on the
+    engine's device."""
+
+    __slots__ = ("gids", "B", "K", "mode", "device", "_parts", "_res_np",
+                 "_ok_np")
+
+    def __init__(self, gids, B, K, parts, mode="auto", device=None):
+        # parts: (row_idx [b], PendingBatch | None, res_row, ok_row)
+        self.gids, self.B, self.K, self.mode = gids, B, K, mode
+        self.device = device
+        self._parts = parts
+        self._res_np = None
+        self._ok_np = None
+
+    def _materialize(self):
+        if self._res_np is None:
+            res = np.zeros((self.B, self.K), np.int32)
+            ok = np.ones((self.B, self.K), bool)
+            for rows, pb, res_row, ok_row in self._parts:
+                if pb is not None:
+                    res[rows] = pb.results_np()
+                    ok[rows] = pb.ok_np()
+                else:
+                    res[rows[0]] = res_row
+                    ok[rows[0]] = ok_row
+            self._res_np, self._ok_np = res, ok
+
+    def results_np(self) -> np.ndarray:
+        self._materialize()
+        return self._res_np
+
+    def ok_np(self) -> np.ndarray:
+        self._materialize()
+        return self._ok_np
+
+    def block(self):
+        for _, pb, _, _ in self._parts:
+            if pb is not None:
+                pb.block()
+        return self
+
+    def ready(self) -> bool:
+        return self._res_np is not None
+
+    def __iter__(self):
+        self._materialize()
+        yield torch.from_numpy(self._res_np).to(self.device, copy=True)
+        yield torch.from_numpy(self._ok_np).to(self.device, copy=True)
+        yield self.gids

@@ -1,10 +1,9 @@
 """Shared-nothing host DBMS with the switch as an additional node (paper §6).
 
 PyTorch port of ``repro/db/dbms.py``: the same cluster on the port's
-``SwitchEngine``, whose register file lives on ``Cluster(device=...)``
-(``None`` -> ``cuda``, which must exist).  Not ported yet: the sharded
-register plane (``n_switches > 1``, ROADMAP Queue 1 item 6) and
-``scan`` (Queue 1 item 4), which raise ``NotImplementedError``.
+``SwitchEngine`` (``ShardedSwitchEngine`` for ``n_switches > 1``), whose
+register files live on ``Cluster(device=...)`` (``None`` -> ``cuda``,
+which must exist).
 
 Functional (value-level) execution used by tests, examples and recovery
 benchmarks; contention timing lives in repro.sim.  Pieces:
@@ -49,7 +48,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.engine import SwitchEngine, resolve_device
+from repro_torch.core.engine import (ShardedSwitchEngine, SwitchEngine,
+                                     resolve_device)
 from repro_torch.core.hotset import HotIndex
 from repro_torch.core.packets import (ADD, ADDP, CADD, NOP, READ, WRITE,
                                 SwitchConfig, addp_unsafe_rows,
@@ -315,16 +315,16 @@ class Cluster:
         """One source of truth for engine construction (initial setup AND
         post-crash recovery): the staging-buffer pool must outlast the
         in-flight window (+1 for the group being staged, +1 slack for the
-        warm synchronous path).  Every engine lives on the cluster's
-        device."""
-        if self.switch_cfg.n_switches > 1:
-            raise NotImplementedError(
-                "n_switches > 1 needs the sharded register plane, not "
-                "ported yet: ROADMAP Queue 1 item 6")
-        return SwitchEngine(self.switch_cfg,
-                            stager_pool=self.max_inflight + 2,
-                            async_dispatch=self.async_hot,
-                            device=self.device)
+        warm synchronous path).  A multi-switch config gets the sharded
+        register plane; single-switch configs keep the plain engine (the
+        byte-identity reference the sharded N=1 path is pinned against).
+        Every engine lives on the cluster's device."""
+        cls = ShardedSwitchEngine if self.switch_cfg.n_switches > 1 \
+            else SwitchEngine
+        return cls(self.switch_cfg,
+                   stager_pool=self.max_inflight + 2,
+                   async_dispatch=self.async_hot,
+                   device=self.device)
 
     @property
     def hot_index(self):

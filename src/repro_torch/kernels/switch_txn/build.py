@@ -42,6 +42,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.switch_txn_launch.restype = ci
     lib.result_gather_launch.argtypes = [vp, ci, vp, vp, ci, vp]
     lib.result_gather_launch.restype = ci
+    lib.scan_prune_scratch_len.argtypes = [ci]
+    lib.scan_prune_scratch_len.restype = ci
+    lib.scan_prune_launch.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp,
+                                      ci, vp]
+    lib.scan_prune_launch.restype = ci
     return lib
 
 

@@ -5,7 +5,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.switch_txn.switch_txn import (result_gather_call,
+from repro_torch.kernels.switch_txn.switch_txn import (AGG_MAX_EMPTY,
+                                                       result_gather_call,
+                                                       scan_prune_call,
                                                        switch_txn_call)
 
 
@@ -32,3 +34,37 @@ def gather_results(res, idx):
     res: [B, K] int32; idx: [M] int32 flat row-major positions (clamped).
     Returns [M] int32."""
     return result_gather_call(res.reshape(-1).contiguous(), idx.contiguous())
+
+
+def scan_prune(registers, idx, lo, hi, cap):
+    """Scan/filter query over the hot slots, pruned on device: gather the
+    ``idx`` slots out of the register file (the result-gather kernel),
+    filter by ``lo <= v <= hi`` and compact the first ``cap`` survivors
+    (the scan-prune kernel).  Only (vals, pos, agg) — ≤ cap rows — ever
+    need to cross device -> host.
+
+    registers: [S, R] int32; idx: [M] int32 flat slot positions in key
+    order.  Returns (vals [cap], pos [cap] positions into idx, agg [4]
+    = count/sum/min/max over all matches)."""
+    src = gather_results(registers, idx)
+    return scan_prune_call(src, lo, hi, cap)
+
+
+def scan_topk(registers, idx, lo, hi, k):
+    """Top-k gather: the k largest in-range values among the hot slots
+    (ties toward the lower key position, the ``lax.top_k`` rule the
+    reference uses).  Returns (vals [k], pos [k] int32 positions into idx,
+    count of all matches); slots past ``count`` hold the int32-min
+    sentinel.  Requires k <= len(idx) (callers clamp).
+
+    ``torch.topk`` documents no order among equal keys, so value and
+    position go into one int64 key, value * 2^32 + (2^32 - 1 - position),
+    whose entries are all distinct: the masked int32-min entries are
+    ordered by position too."""
+    src = gather_results(registers, idx)
+    in_range = (src >= lo) & (src <= hi)
+    masked = torch.where(in_range, src, torch.full_like(src, AGG_MAX_EMPTY))
+    pos = torch.arange(src.shape[0], dtype=torch.int64, device=src.device)
+    key = masked.to(torch.int64) * 2 ** 32 + (2 ** 32 - 1 - pos)
+    top = torch.topk(key, k).indices
+    return masked[top], top.to(torch.int32), in_range.sum(dtype=torch.int32)

@@ -2,12 +2,14 @@
 PyTorch versions.
 
 ``switch_txn_call`` replaces ``repro/kernels/switch_txn/switch_txn.py::
-switch_txn_call`` (Pallas ``_kernel``) and ``result_gather_call`` replaces
-``result_gather_call`` (``_gather_kernel``).  Each launcher takes int32,
-contiguous, 1-D tensors: a CUDA tensor always goes to the hand-written
-kernel in ``csrc/switch_txn.cu`` (built at first use by ``build.py``), a
-CPU tensor to the plain version below.  There is no fallback: a failed
-build or launch raises.  ``LAUNCHES`` counts kernel launches only.
+switch_txn_call`` (Pallas ``_kernel``), ``result_gather_call`` replaces
+``result_gather_call`` (``_gather_kernel``) and ``scan_prune_call``
+replaces ``scan_prune_call`` (``_scan_prune_kernel``).  Each launcher
+takes int32, contiguous, 1-D tensors: a CUDA tensor always goes to the
+hand-written kernel in ``csrc/switch_txn.cu`` (built at first use by
+``build.py``), a CPU tensor to the plain version below.  There is no
+fallback: a failed build or launch raises.  ``LAUNCHES`` counts kernel
+launches only.
 
 The register file is updated IN PLACE — the port's stand-in for JAX's
 buffer donation — so callers copy it where they need an old state.
@@ -19,7 +21,10 @@ import torch
 
 NOP, READ, WRITE, ADD, CADD = 0, 1, 2, 3, 4
 
-LAUNCHES = {"switch_txn": 0, "result_gather": 0}
+LAUNCHES = {"switch_txn": 0, "result_gather": 0, "scan_prune": 0}
+
+AGG_MIN_EMPTY = 2147483647        # int32 identities the aggregate lanes
+AGG_MAX_EMPTY = -2147483648       # start from (empty-scan sentinels)
 
 
 def _check(name: str, t, n=None):
@@ -157,3 +162,71 @@ def result_gather_call(src, idx):
     _raise_on(err, "result_gather")
     LAUNCHES["result_gather"] += 1
     return out
+
+
+# ------------------------------------------------------------ scan_prune --
+
+def _int32(name: str, x) -> int:
+    x = int(x)
+    if not AGG_MAX_EMPTY <= x <= AGG_MIN_EMPTY:
+        raise OverflowError(f"{name}={x} does not fit in int32")
+    return x
+
+
+def scan_prune_plain(src, lo, hi, cap):
+    """Plain PyTorch version of the scan_prune kernel: the first ``cap``
+    matches of ``lo <= v <= hi`` in stream order (values 0-padded,
+    positions -1-padded) and (count, int32-wrapped sum, min, max) over all
+    matches, with the identities for an empty scan."""
+    dev = src.device
+    pos = torch.nonzero((src >= lo) & (src <= hi)).squeeze(1)
+    count = pos.shape[0]
+    t = min(count, cap)
+    vals = torch.zeros(cap, dtype=torch.int32, device=dev)
+    idx = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    vals[:t] = src[pos[:t]]
+    idx[:t] = pos[:t].to(torch.int32)
+    if count:
+        hits = src[pos]
+        agg = torch.stack([torch.tensor(count, dtype=torch.int32, device=dev),
+                           _wrap32(hits.to(torch.int64).sum()),
+                           hits.min(), hits.max()])
+    else:
+        agg = torch.tensor([0, 0, AGG_MIN_EMPTY, AGG_MAX_EMPTY],
+                           dtype=torch.int32, device=dev)
+    return vals, idx, agg
+
+
+def scan_prune_call(src, lo, hi, cap):
+    """Switch-side scan pruning: src [M] int32 value stream, lo/hi int32
+    scalars (inclusive range), cap the output capacity.  Returns vals
+    [cap] int32 (0-padded), idx [cap] int32 stream positions (-1-padded)
+    and agg [4] int32 = (count, sum, min, max) over ALL matches; ``count
+    > cap`` tells the caller the output was truncated."""
+    _check("src", src)
+    lo, hi = _int32("lo", lo), _int32("hi", hi)
+    cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    dev = _same_device(src)
+    if dev.type == "cpu":
+        return scan_prune_plain(src, lo, hi, cap)
+    vals = torch.zeros(cap, dtype=torch.int32, device=dev)
+    idx = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    agg = torch.tensor([0, 0, AGG_MIN_EMPTY, AGG_MAX_EMPTY],
+                       dtype=torch.int32, device=dev)
+    m = src.shape[0]
+    if m == 0:
+        return vals, idx, agg
+    from repro_torch.kernels.switch_txn.build import library
+    lib = library()
+    n_scratch = lib.scan_prune_scratch_len(m)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.scan_prune_launch(src.data_ptr(), m, lo, hi, cap,
+                                vals.data_ptr(), idx.data_ptr(),
+                                agg.data_ptr(), scratch.data_ptr(), n_scratch,
+                                stream)
+    _raise_on(err, "scan_prune")
+    LAUNCHES["scan_prune"] += 1
+    return vals, idx, agg

@@ -180,15 +180,27 @@ def test_converted_state_continues_like_jax():
             {k: v for k, v in tn.store.items() if v}
 
 
-def test_cluster_device_and_unported_paths():
+def test_cluster_device_and_sharded_scan_paths():
+    """The default device is cuda (raises without a GPU); an
+    ``n_switches=2`` cluster builds the sharded plane on the cluster's
+    device, and ``scan`` answers on the CPU."""
     traces, top_k, _, _, _ = _ycsb(n=1)
     thi = build_hot_index(traces, top_k, TSW)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TCluster(2, TSW, thi)
     from dataclasses import replace
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TCluster(2, replace(TSW, n_switches=2), thi, device="cpu")
+
+    from repro_torch.core.engine import ShardedSwitchEngine
+    cfg2 = replace(TSW, n_switches=2)
+    c2 = TCluster(2, cfg2, build_hot_index(traces, top_k, cfg2),
+                  device="cpu")
+    assert isinstance(c2.switch, ShardedSwitchEngine)
+    assert len(c2.switch.planes) == 2
+    assert all(p.registers.device.type == "cpu" for p in c2.switch.planes)
     c = TCluster(4, TSW, thi, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        c.scan(0, 10)
+    keys = sorted(thi.placement.slot)[:3]
+    for i, k in enumerate(keys):
+        c.load(k, 5 + i)
+    assert c.scan(5, 6) == [(keys[0], 5), (keys[1], 6)]
+    assert c.scan(0, 10, keys=keys, limit=1) == [(keys[2], 7)]

@@ -71,6 +71,32 @@ def test_engine_int32_wraparound_matches_jax():
         _run_both(je, te, p, mode)
 
 
+def test_serial_out_of_range_slots_match_jax():
+    """The serial engine reads a slot past the file clamped into it and
+    drops its write, chained through ADDP and CADD, like the JAX serial
+    engine (negative slots are a deliberate difference: the port clamps
+    them to 0); slots the stream never names keep their values."""
+    rng = np.random.default_rng(6)
+    regs0 = rng.integers(-50, 100, (CFG.n_stages, CFG.regs_per_stage))
+    je, te = _pair(regs0)
+    for B in (4, 9):
+        p = random_batch(rng, B, 5, ops=(0, 1, 2, 3, 4, 5))
+        far = rng.random((B, 5)) < 0.3
+        p["stage"][far] = CFG.n_stages + 2
+        p["reg"][far[::-1]] = CFG.regs_per_stage + 3
+        _run_both(je, te, p, "serial")
+    te2 = teng.SwitchEngine(TCFG, regs0, device="cpu")
+    p = empty_packets(1, CFG)
+    p["op"][0, :2] = [2, 3]                                # WRITE, ADD
+    p["stage"][0, :2] = [1, 1]
+    p["reg"][0, :2] = [4, 4]
+    p["operand"][0, :2] = [7, 5]
+    assert te2.execute(p, mode="serial")[0][0, :2].tolist() == [7, 12]
+    want = regs0.copy()
+    want[1, 4] = 12
+    np.testing.assert_array_equal(te2.read_all(), want)
+
+
 @pytest.mark.parametrize("mode,ops", [
     ("affine", (NOP, CADD)), ("affine", (NOP, ADDP)),
     ("staged", (NOP, CADD)), ("pallas", (NOP, ADDP)), ("bogus", (NOP,)),
@@ -136,17 +162,28 @@ def test_register_copies_never_alias():
     assert int(t.abs().sum()) == 0
 
 
-def test_empty_batch_and_unported_paths():
+def test_empty_batch_scan_and_sharded_engine():
     e = teng.SwitchEngine(TCFG, device="cpu")
     res, ok, gids = e.execute_batch(empty_packets(0, CFG))
     assert isinstance(res, np.ndarray) and res.shape == (0, 5)
     assert len(gids) == 0 and e.dispatch_count == 0
-    rp = ReadPacket(np.zeros(1, np.int32), np.zeros(1, np.int32),
-                    np.zeros(1, np.int32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        e.execute_scan(rp, 0, 10, cap=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        teng.ShardedSwitchEngine(TCFG)
+    e.load_registers(np.arange(CFG.n_stages * CFG.regs_per_stage,
+                               dtype=np.int32).reshape(CFG.n_stages, -1))
+    R = CFG.regs_per_stage
+    rp = ReadPacket(np.zeros(3, np.int32), np.array([0, 1, 1], np.int32),
+                    np.array([2, 0, 5], np.int32))
+    vals, pos, agg = e.execute_scan(rp, 0, R, cap=4)
+    assert vals.tolist() == [2, R, 0, 0] and pos.tolist() == [0, 1, -1, -1]
+    assert agg.tolist() == [2, 2 + R, 2, R]
+    vals, pos, count = e.execute_scan(rp, 0, 10 ** 6, k=2)
+    assert vals.tolist() == [R + 5, R] and pos.tolist() == [2, 1]
+    assert count == 3 and e.read_dispatch_count == 2
+    with pytest.raises(ValueError, match="exactly one"):
+        e.execute_scan(rp, 0, 1)
+    from dataclasses import replace
+    sh = teng.ShardedSwitchEngine(replace(TCFG, n_switches=2), device="cpu")
+    assert [p.registers.device.type for p in sh.planes] == ["cpu", "cpu"]
+    assert sh.read_all().shape == (2, CFG.n_stages, R)
 
 
 @pytest.mark.parametrize("make", [

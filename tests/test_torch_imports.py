@@ -1,6 +1,9 @@
 """Every module of the port imports with ``jax`` and ``repro`` blocked: the
 port keeps its own copy of what it needs and imports torch and numpy
-only."""
+only.  Imports inside functions run only when called, so the port's
+sources and ``chip_smoke.py`` are also read with ``ast`` at every
+depth."""
+import ast
 import os
 import subprocess
 import sys
@@ -34,13 +37,26 @@ def test_port_imports_without_jax_or_repro():
     assert int(out.stdout.split()[-1]) == n_files
 
 
+def _forbidden_imports(path: Path):
+    """Every import of jax, jaxlib or repro in ``path``, at any depth
+    (module level, inside functions, classes or conditionals)."""
+    tree = ast.parse(path.read_text())
+    names = [(n.lineno, a.name) for n in ast.walk(tree)
+             if isinstance(n, ast.Import) for a in n.names]
+    names += [(n.lineno, n.module) for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module
+              and n.level == 0]
+    return [f"{path.relative_to(ROOT)}:{line}: {m}" for line, m in names
+            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
 def test_chip_smoke_imports_nothing_of_jax_or_repro():
     """chip_smoke.py's imports name neither jax nor the JAX package."""
-    import ast
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
-             for a in n.names]
-    names += [n.module for n in ast.walk(tree)
-              if isinstance(n, ast.ImportFrom) and n.module]
-    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "repro")]
-    assert not bad
+    assert not _forbidden_imports(ROOT / "chip_smoke.py")
+
+
+def test_port_sources_import_nothing_of_jax_or_repro_at_any_depth():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert files
+    bad = [b for f in files for b in _forbidden_imports(f)]
+    assert not bad, bad

@@ -12,10 +12,16 @@ torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
 from repro.kernels.switch_txn import ops as jops  # noqa: E402
+from repro.kernels.switch_txn.ref import \
+    scan_prune_ref as j_scan_prune_ref  # noqa: E402
 from repro.kernels.switch_txn.ref import switch_exec_ref as jref  # noqa: E402
 from repro_torch.kernels.switch_txn import ops as tops  # noqa: E402
 from repro_torch.kernels.switch_txn import switch_txn as tk  # noqa: E402
 from repro_torch.kernels.switch_txn.ref import switch_exec_ref as tref  # noqa: E402,E501
+from repro_torch.kernels.switch_txn.ref import \
+    scan_prune_ref as t_scan_prune_ref  # noqa: E402
+from repro_torch.kernels.switch_txn.ref import \
+    scan_topk_ref as t_scan_topk_ref  # noqa: E402
 
 
 def _both(regs, op, st, rg, vl):
@@ -126,3 +132,130 @@ def test_launchers_reject_bad_inputs(bad, err):
     if err is TypeError:
         with pytest.raises(err):
             tk.result_gather_call(regs, bad(x))
+
+
+# ------------------------------------------------------------ scan tier --
+
+S_SCAN, R_SCAN = 4, 32                        # tests/test_reads.py sizes
+
+
+def _scan_case(seed, n, selectivity, values="uniform"):
+    """A [4, 32] register file, an [n] slot stream over it (slots may
+    repeat) and an inclusive range that keeps about ``selectivity``% of
+    the gathered values: 0 and 100 are the empty and all-pass edges."""
+    rng = np.random.default_rng(seed)
+    if values == "ties":                       # few distinct values
+        regs = rng.choice([-5, 0, 3, 3, 9], (S_SCAN, R_SCAN))
+    elif values == "wrap":                     # sums past +-2**31
+        regs = rng.choice([2**31 - 1, 2**31 - 7, 2**30, -2**31, -2**31 + 9],
+                          (S_SCAN, R_SCAN))
+    else:
+        regs = rng.integers(-1000, 1000, (S_SCAN, R_SCAN))
+    idx = rng.integers(0, S_SCAN * R_SCAN, n)
+    src = regs.reshape(-1)[idx]
+    if selectivity == 0:                       # a range between values
+        u = np.unique(src).astype(np.int64)
+        gap = np.flatnonzero(np.diff(u) > 1)
+        lo = hi = int(u[gap[0]] + 1) if len(gap) else int(u[-1]) + 1
+    elif selectivity == 100:
+        lo, hi = int(src.min()), int(src.max())
+    else:
+        lo = int(np.percentile(src, max(0, 50 - selectivity // 2)))
+        hi = int(np.percentile(src, min(100, 50 + selectivity // 2)))
+    return regs.astype(np.int32), idx.astype(np.int32), src, lo, hi
+
+
+@pytest.mark.parametrize("n,selectivity,cap,values", [
+    (1, 100, 1, "uniform"),
+    (37, 0, 5, "uniform"),
+    (64, 30, 1, "uniform"),
+    (64, 30, 64, "uniform"),
+    (100, 50, 7, "ties"),
+    (257, 100, 257, "wrap"),
+    (300, 10, 300, "uniform"),
+])
+def test_scan_prune_matches_jax(n, selectivity, cap, values):
+    """ops.scan_prune (gather + scan-prune) against the JAX op (Pallas in
+    interpret mode) and the numpy oracle, exactly."""
+    regs, idx, src, lo, hi = _scan_case(n * 7 + cap, n, selectivity, values)
+    want = jops.scan_prune(jnp.asarray(regs), jnp.asarray(idx), lo, hi,
+                           cap=cap)
+    got = tops.scan_prune(torch.tensor(regs), torch.tensor(idx), lo, hi,
+                          cap)
+    for w, g, o, p in zip(want, got, t_scan_prune_ref(src, lo, hi, cap),
+                          j_scan_prune_ref(src, lo, hi, cap)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+        np.testing.assert_array_equal(o, g.numpy())
+        np.testing.assert_array_equal(p, o)
+
+
+@pytest.mark.parametrize("values", ["uniform", "ties", "wrap"])
+@pytest.mark.parametrize("selectivity", [0, 5, 40, 100])
+def test_scan_prune_every_cap_matches_ref(selectivity, values):
+    """Every cap from 1 to n (truncated, exact and padded outputs) on one
+    stream, against the port's and the JAX package's numpy oracles."""
+    n = 40
+    regs, idx, src, lo, hi = _scan_case(selectivity + len(values), n,
+                                        selectivity, values)
+    for cap in range(1, n + 1):
+        got = tops.scan_prune(torch.tensor(regs), torch.tensor(idx), lo, hi,
+                              cap)
+        for g, o, p in zip(got, t_scan_prune_ref(src, lo, hi, cap),
+                           j_scan_prune_ref(src, lo, hi, cap)):
+            np.testing.assert_array_equal(o, g.numpy())
+            np.testing.assert_array_equal(p, o)
+    if values == "wrap" and selectivity == 100:
+        exact = int(src.astype(np.int64).sum())
+        assert not -2**31 <= exact < 2**31          # the sum did wrap
+        assert int(got[2][1]) == np.int64(exact).astype(np.int32)
+
+
+def test_scan_prune_empty_and_inverted_ranges():
+    """lo > hi, an empty stream and cap 0 give the empty result with the
+    identities: (0, 0, INT32_MAX, INT32_MIN)."""
+    src = torch.tensor([5, -3, 7], dtype=torch.int32)
+    empty = [0, 0, tk.AGG_MIN_EMPTY, tk.AGG_MAX_EMPTY]
+    vals, idx, agg = tk.scan_prune_call(src, 6, 4, 2)
+    assert vals.tolist() == [0, 0] and idx.tolist() == [-1, -1]
+    assert agg.tolist() == empty
+    vals, idx, agg = tk.scan_prune_call(src[:0], -10, 10, 3)
+    assert idx.tolist() == [-1] * 3 and agg.tolist() == empty
+    vals, idx, agg = tk.scan_prune_call(src, -10, 10, 0)
+    assert vals.numel() == 0 and agg.tolist() == [3, 9, -3, 7]
+    with pytest.raises(OverflowError):
+        tk.scan_prune_call(src, 0, 2**31, 1)
+
+
+@pytest.mark.parametrize("n,selectivity,values", [
+    (1, 100, "uniform"),
+    (50, 0, "uniform"),
+    (64, 40, "ties"),
+    (128, 100, "ties"),
+    (200, 20, "wrap"),
+])
+def test_scan_topk_matches_jax(n, selectivity, values):
+    """ops.scan_topk against the JAX op (``lax.top_k``) and the numpy
+    oracle for every k, ties included: equal values go to the lower
+    position, the masked int32-min entries too."""
+    regs, idx, src, lo, hi = _scan_case(n + selectivity, n, selectivity,
+                                        values)
+    jr, ji, tr, ti = (jnp.asarray(regs), jnp.asarray(idx),
+                      torch.tensor(regs), torch.tensor(idx))
+    for k in sorted({1, min(2, n), n // 2 or 1, n}):
+        wv, wp, wc = jops.scan_topk(jr, ji, lo, hi, k=k)
+        gv, gp, gc = tops.scan_topk(tr, ti, lo, hi, k)
+        ov, op_, oc = t_scan_topk_ref(src, lo, hi, k)
+        assert gv.dtype == gp.dtype == torch.int32
+        assert int(gc) == int(wc) == oc
+        np.testing.assert_array_equal(np.asarray(wv), gv.numpy())
+        np.testing.assert_array_equal(np.asarray(wp), gp.numpy())
+        np.testing.assert_array_equal(ov, gv.numpy())
+        np.testing.assert_array_equal(op_, gp.numpy())
+
+
+def test_scan_launches_only_on_cuda_tensors():
+    before = dict(tk.LAUNCHES)
+    regs = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    tops.scan_prune(regs, torch.arange(8, dtype=torch.int32), 2, 5, 3)
+    assert tk.LAUNCHES == before
