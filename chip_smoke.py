@@ -5,11 +5,13 @@
 Phases (each one exits non-zero on failure):
 
 1. device   — the card's name and power limit;
-2. build    — compile the switch_txn kernels from ``src/repro_torch``;
+2. build    — compile every kernel library from ``src/repro_torch`` (one
+              nvcc per source, all started together);
 3. kernels  — each kernel against its plain PyTorch version on the card at
               the hot path's shapes, timed with CUDA events; scan_prune
               also over the whole 24 x 65536 register file at several
-              selectivities and caps;
+              selectivities and caps; moe_route at the reference test
+              shapes, edge streams and the serving path's shapes;
 4. main     — P4DB's hot-transaction path at full width: an 8-node YCSB-A
               cluster on a 24 x 65536 switch register file in ``pallas``
               mode, 8 ``run_batch`` calls of 256 txns, held against the
@@ -28,7 +30,20 @@ Phases (each one exits non-zero on failure):
               ``pallas`` mode and in ``auto`` mode (the serial engine),
               against the CPU port;
 10. profile — one more YCSB batch under ``torch.profiler`` for the device's
-              busy share.
+              busy share;
+11. serve   — the model zoo's MoE serving path at full width:
+              ``qwen3_moe_235b_a22b`` cut to 4 layers, bf16, random
+              parameters from a seeded generator, 8 requests x 256
+              prompt tokens x 16 generated through ``generate``; checks
+              the kernel on every layer's real sorted-id stream, the
+              routing plan's invariants, and teacher-forced decode
+              against the full forward with nothing dropped (bf16 on
+              every (row, position) pair whose experts match in both
+              runs, float32 on all); profiles prefill and one decode
+              step;
+12. chain   — the ``qwen3-moe-smoke`` config in float32 and in bf16 with
+              the same converted parameters on the card and through the
+              CPU port.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -42,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -278,6 +294,83 @@ def scan_kernel_checks(tk, lib, dev):
                 bound_ms=b, bound_by=by, library_ms=None, kernel_ms=bare,
                 shape=[4096, 16],
                 full_width=[full(fw, "5%", 16), full(fw_all, "all", n_slots)])
+
+
+# ---------------------------------------------------------- phase 3, moe --
+
+MOE_ARCH = "qwen3_moe_235b_a22b"
+MOE_LAYERS, MOE_B, MOE_PROMPT, MOE_GEN = 4, 8, 256, 16
+
+
+def _sorted_ids(rng, n, n_experts):
+    return np.sort(rng.integers(0, n_experts, n)).astype(np.int32)
+
+
+def moe_route_checks(mr, lib, dev):
+    """moe_route against its plain version (exactly) on the reference
+    test shapes, edge streams and the serving path's shapes (prefill:
+    2,048 tokens x top-8 = 16,384 ids over 128 experts; decode: 8 x 8 =
+    64), then timed at both serving shapes."""
+    rng = np.random.default_rng(SEED + 20)
+    cases = {f"{n}x{e}": _sorted_ids(np.random.default_rng(n), n, e)
+             for n, e in ((64, 4), (1000, 7), (4096, 128), (513, 1))}
+    cases["N=1"] = np.array([3], np.int32)
+    cases["hot 90%"] = np.sort(np.where(rng.random(16384) < 0.9, 17,
+                                        rng.integers(0, 128, 16384))
+                               ).astype(np.int32)
+    # runs of 1,000: a run straddles every multiple of 1,024
+    cases["runs cross 1024"] = np.repeat(np.arange(17, dtype=np.int32),
+                                         1000)[:16384]
+    cases["prefill"] = _sorted_ids(rng, MOE_B * MOE_PROMPT * 8, 128)
+    cases["decode"] = _sorted_ids(rng, MOE_B * 8, 128)
+    err = 0
+    for name, ids in cases.items():
+        t = torch.tensor(ids, device=dev)
+        got, want = mr.moe_route_call(t), mr.moe_route_plain(t)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.int32 and torch.equal(got, want),
+              f"moe_route differs from plain ({name})")
+        err = max(err, int((got.long() - want.long()).abs().max()))
+    before = dict(mr.LAUNCHES)
+    check(mr.moe_route_call(torch.zeros(0, dtype=torch.int32, device=dev)
+                            ).shape == (0,) and mr.LAUNCHES == before,
+          "moe_route launched on an empty stream")
+
+    stream_h = torch.cuda.current_stream(dev).cuda_stream
+    timed = {}
+    for name in ("prefill", "decode"):
+        t = torch.tensor(cases[name], device=dev)
+        n = t.shape[0]
+        out = torch.empty_like(t)
+        ms = time_cuda(lambda: mr.moe_route_call(t), inner=200, reps=11)
+        bare = time_cuda(lambda: lib.moe_route_launch(
+            t.data_ptr(), n, out.data_ptr(), stream_h), inner=200, reps=11)
+        plain = time_cuda(lambda: mr.moe_route_plain(t), inner=200, reps=11)
+        # the nearest single PyTorch call computes each run's first index;
+        # the positions are one subtraction more
+        lib_ms = time_cuda(lambda: torch.searchsorted(t, t), inner=200,
+                           reps=11)
+        b, by = bound_ms(8 * n, n)          # ids read once, pos written once
+        timed[name] = dict(n=n, ms=ms, kernel_ms=bare, plain_ms=plain,
+                           library_ms=lib_ms, bound_ms=b, bound_by=by)
+    print("kernels: moe_route equal to plain on "
+          + ", ".join(f"{k} (N={len(v)})" for k, v in cases.items())
+          + "; N=0 not launched; " + "; ".join(
+              f"{k} N={d['n']}: {d['ms'] * 1e3:.2f} us/call (bare "
+              f"{d['kernel_ms'] * 1e3:.2f} us, plain {d['plain_ms'] * 1e3:.2f}"
+              f" us, searchsorted {d['library_ms'] * 1e3:.2f} us, bound "
+              f"{d['bound_ms'] * 1e3:.4f} us)" for k, d in timed.items()),
+          flush=True)
+    p = timed["prefill"]
+    return dict(name="moe_route", route="cuda",
+                source="src/repro_torch/kernels/moe_route/csrc/moe_route.cu",
+                replaces="src/repro/kernels/moe_route/moe_route.py:24",
+                launches=0, max_abs_err=err, ms=p["ms"],
+                plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
+                bound_by=p["bound_by"], library_ms=p["library_ms"],
+                library="torch.searchsorted(ids, ids): first index only",
+                kernel_ms=p["kernel_ms"], shape=[p["n"]],
+                decode=timed["decode"])
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -651,48 +744,348 @@ def cadd_path(tk):
 
 # --------------------------------------------------------------- phase 10 --
 
-def profile_batch(gpu, p):
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.workloads import ycsb
-    batch = ycsb.generate(np.random.default_rng(SEED + 2), B, p)
-    gpu.run_batch(batch[:16])                 # warm the recovered engine
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        gpu.run_batch(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us = 0.0
-    rows = []
+def _device_by_name(prof):
+    """(device us, [(us, name, count)] by kernel name) of a profile."""
+    total, rows = 0.0, []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")) != "DeviceType.CUDA":
             continue                 # host ops repeat their kernels' time
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
         if t > 0:
-            dev_us += t
+            total += t
             rows.append((t, e.key, e.count))
-    rows.sort(reverse=True)
+    return total, sorted(rows, reverse=True)
+
+
+def _profile(label, fn, top=None):
+    """Wall time and device busy time of ``fn()`` under torch.profiler,
+    with the ``top`` kernels by device time (all when None)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, rows = _device_by_name(prof)
     if dev_us == 0:
-        print("profile: device time not measured (profiler saw no device "
-              "activity)", flush=True)
+        print(f"profile [{label}]: device time not measured (profiler saw "
+              "no device activity)", flush=True)
         return
     short = lambda k: k.replace("(anonymous namespace)::", "").split(
-        "(")[0].split("<")[0].split("::")[-1]
-    print(f"profile: one run_batch of {B} YCSB-A txns, wall "
-          f"{wall * 1e3:.3f} ms (profiler on), device busy "
-          f"{dev_us / 1e3:.3f} ms = {dev_us / 1e6 / wall:.4%}; by name: "
-          + "; ".join(f"{short(k)} x{c} {t:.1f} us" for t, k, c in rows),
-          flush=True)
+        "(")[0].split("<")[0].split("::")[-1][:48]
+    print(f"profile [{label}]: wall {wall * 1e3:.3f} ms (profiler on), "
+          f"device busy {dev_us / 1e3:.3f} ms = {dev_us / 1e6 / wall:.4%}; "
+          "by name: " + "; ".join(f"{short(k)} x{c} {t:.1f} us"
+                                  for t, k, c in rows[:top]), flush=True)
+
+
+def profile_batch(gpu, p):
+    from repro_torch.workloads import ycsb
+    batch = ycsb.generate(np.random.default_rng(SEED + 2), B, p)
+    gpu.run_batch(batch[:16])                 # warm the recovered engine
+    _profile(f"one run_batch of {B} YCSB-A txns",
+             lambda: gpu.run_batch(batch))
+
+
+# --------------------------------------------------------------- phase 11 --
+
+def _plan_checks(plan, E, C, where):
+    """(b): admitted slots unique, each expert's admitted count <= C and
+    equal to min(its entries, C), slot == E*C exactly where not admitted.
+    Returns the number of dropped entries."""
+    admit, slot = plan["admit"], plan["slot"].long()
+    ids = plan["ids"].reshape(-1)[plan["order"].long()].long()
+    check(bool((slot[~admit] == E * C).all()), f"{where}: a dropped entry "
+          "does not carry slot E*C")
+    adm = slot[admit]
+    check(bool((adm < E * C).all()) and torch.unique(adm).numel()
+          == adm.numel(), f"{where}: admitted slots not unique")
+    check(bool((adm // C == ids[admit]).all()), f"{where}: an admitted "
+          "slot lies outside its expert's rows")
+    per = torch.bincount(adm // C, minlength=E)
+    want = torch.bincount(ids, minlength=E).clamp_max(C)
+    check(bool((per <= C).all()) and torch.equal(per, want),
+          f"{where}: admitted count per expert is not min(entries, C)")
+    return int((~admit).sum())
+
+
+def serve_path(mr):
+    """The full-width MoE serving path through ``generate``; returns the
+    moe_route launches of its counted run."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import capacity_for, route
+
+    # float32 products in full float32 (the default, stated here): the
+    # router, attention scores and the head run on float32 operands
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=MOE_LAYERS)
+    E = cfg.moe.n_experts
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED))
+    model = lm.LM(cfg, params)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    print(f"serve: {cfg.name} at full width, {cfg.n_layers} of 94 layers, "
+          f"{n_bytes / 1e9:.2f} GB of bf16/fp32 parameters drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (MOE_B, MOE_PROMPT))
+
+    generate(cfg, model, {"tokens": prompts}, 2, "cuda")      # warm-up
+    mr.LAUNCHES["moe_route"] = 0
+    out = generate(cfg, model, {"tokens": prompts}, MOE_GEN, "cuda")
+    launches = mr.LAUNCHES["moe_route"]
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == cfg.n_layers * MOE_GEN, f"serve: moe_route launched "
+          f"{launches} times, expected {cfg.n_layers} per forward")
+    toks = out.tokens
+    check(toks.shape == (MOE_B, MOE_GEN) and bool(((toks >= 0) & (
+        toks < cfg.vocab_size)).all()), "serve: bad tokens")
+    check(bool(torch.isfinite(out.logits).all()), "serve: non-finite logits")
+    check(torch.equal(out.logits.argmax(-1).to(torch.int32), toks),
+          "serve: tokens are not the logits' argmax")
+    decode_ms = out.decode_seconds * 1e3 / (MOE_GEN - 1)
+    print(f"serve: {MOE_B} requests x {MOE_PROMPT} prompt tokens x "
+          f"{MOE_GEN} generated; prefill {out.prefill_seconds * 1e3:.3f} "
+          f"ms, decode {decode_ms:.3f} ms/step = "
+          f"{decode_ms / MOE_B:.4f} ms/token/seq; moe_route launches "
+          f"{launches} ({cfg.n_layers} per forward); peak memory "
+          f"{peak / 1e9:.2f} GB", flush=True)
+
+    # (a), (b): the sorted-id streams route builds from each layer's MoE
+    # input, captured by forward pre-hooks over prefill + one decode step
+    captured = []
+    hooks = [layer.moe.register_forward_pre_hook(
+        lambda mod, args, i=i: captured.append((i, args[0].clone(), args[1])))
+        for i, layer in enumerate(model.layers)]
+    try:
+        generate(cfg, model, {"tokens": prompts}, 2, "cuda")
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(captured) == 2 * cfg.n_layers, "serve: hooks missed a layer")
+    drops = {"prefill": [], "decode": []}
+    with torch.inference_mode():
+        for j, (i, x, cap) in enumerate(captured):
+            phase = "prefill" if j < cfg.n_layers else "decode"
+            want_cap = capacity_for(x.numel() // cfg.d_model, cfg.moe)
+            check(cap == want_cap, f"serve: {phase} capacity {cap}")
+            lp = model.layers[i].moe.weights()
+            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+            plan = route(h.reshape(-1, cfg.d_model), lp["router"], cfg.moe,
+                         cap)
+            ids = plan["ids"].reshape(-1)[plan["order"].long()].contiguous()
+            got, want = mr.moe_route_call(ids), mr.moe_route_plain(ids)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"serve: moe_route differs from "
+                  f"plain on layer {i}'s {phase} stream (N={ids.numel()})")
+            drops[phase].append(_plan_checks(plan, E, cap,
+                                             f"{phase} layer {i}"))
+    caps = (capacity_for(MOE_B * MOE_PROMPT, cfg.moe),
+            capacity_for(MOE_B, cfg.moe))
+    print(f"serve: (a) kernel equal to plain on the {len(captured)} real "
+          f"streams (N={MOE_B * MOE_PROMPT * 8} prefill, {MOE_B * 8} decode)"
+          f"; (b) plan invariants hold at capacity {caps[0]} / {caps[1]}; "
+          f"entries dropped per layer: prefill {drops['prefill']}, decode "
+          f"{drops['decode']}", flush=True)
+
+    tok_t = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    tf = _teacher_forced(cfg, model, tok_t, 5e-2)
+    print(f"serve: bf16 at capacity factor {cfg.moe.capacity_factor}, "
+          f"teacher-forced decode over the last 8 prompt positions against "
+          f"the full forward: max abs diff {tf['max']:.3e}, {tf['bad']} of "
+          f"{tf['n']} logits beyond 5e-2 (reported, not checked: the two "
+          "paths drop different entries)", flush=True)
+
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg)
+        _profile(f"serve: prefill {MOE_B} x {MOE_PROMPT}",
+                 lambda: prefill(model, {"tokens": tok_t}), top=10)
+        _, cache = prefill(model, {"tokens": tok_t})
+        cache = {n: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 1))
+                 for n, a in cache.items()}
+        pos = torch.full((MOE_B,), MOE_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        _profile(f"serve: decode step, batch {MOE_B}", lambda: make_serve_step(
+            cfg)(model, cache, {"tokens": tok_t[:, 0], "pos": pos}), top=10)
+    # (c): the KV cache and decode path against the full forward, with
+    # the capacity raised to E / top_k so that nothing can be dropped: at
+    # the config's capacity the 256-token forward and the 248-token
+    # prefill drop different entries (a batch's tokens compete for
+    # capacity in flat order), which moves logits far past any tolerance
+    # without a fault in the cache.  First bf16, the precision timed above,
+    # on the same parameters, with cuBLAS's bf16 reduced-precision split-K
+    # reductions allowed (the default) and then not; then float32
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / cfg.moe.top_k))
+    cap_nd = capacity_for(MOE_B * MOE_PROMPT, nodrop.moe)
+    mm = torch.backends.cuda.matmul
+    reduced = mm.allow_bf16_reduced_precision_reduction
+    readings = {}
+    try:
+        for flag in (reduced, not reduced):
+            mm.allow_bf16_reduced_precision_reduction = flag
+            readings[flag] = _teacher_forced(nodrop, lm.LM(nodrop, params),
+                                             tok_t, 5e-2)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = reduced
+    for flag, tf in readings.items():
+        print(f"serve: (c) bf16, capacity {cap_nd} (nothing dropped), "
+              f"allow_bf16_reduced_precision_reduction={flag}: "
+              f"teacher-forced decode against the full forward, max abs "
+              f"diff {tf['max']:.3e}, {tf['bad']} of {tf['n']} logits beyond "
+              f"rtol/atol 5e-2; {tf['pairs'] - tf['alike']} of {tf['pairs']} "
+              f"(row, position) pairs follow a token whose expert set "
+              f"differs between the runs in some layer; over the other "
+              f"{tf['alike']}: max abs diff {tf['max_alike']:.3e}, "
+              f"{tf['bad_alike']} beyond 5e-2", flush=True)
+    # bf16 rounding may flip a near-tied expert, which moves that row's
+    # later logits by an expert's whole contribution; the check holds
+    # every pair routed alike, and asks that those be most of them
+    tf = readings[reduced]
+    check(tf["bad_alike"] == 0 and 2 * tf["alike"] >= tf["pairs"],
+          f"serve: (c) bf16: {tf['bad_alike']} teacher-forced decode "
+          f"logits routed alike differ from the full forward beyond 5e-2 "
+          f"(max {tf['max_alike']:.3e}), {tf['alike']} of {tf['pairs']} "
+          "pairs routed alike")
+    del model, params, cache
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(nodrop, dtype="float32")
+    model = lm.LM(cfg32, lm.init_params(cfg32, torch.Generator(
+        device="cuda").manual_seed(SEED)))
+    tf = _teacher_forced(cfg32, model, tok_t, 1e-4)
+    check(tf["bad"] == 0, f"serve: (c) float32: {tf['bad']} of {tf['n']} "
+          f"teacher-forced decode logits differ from the full forward "
+          f"beyond 1e-4 (max {tf['max']:.3e})")
+    print(f"serve: (c) float32, capacity {cap_nd} (nothing dropped): "
+          f"teacher-forced decode over the last 8 prompt positions equals "
+          f"the full forward within rtol/atol 1e-4 (max abs diff "
+          f"{tf['max']:.3e} over {tf['n']} logits; "
+          f"{tf['pairs'] - tf['alike']} of {tf['pairs']} pairs routed "
+          "differently)", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _teacher_forced(cfg, model, tok_t, tol):
+    """Prefill all but the last 8 prompt tokens, teacher-force those 8
+    through decode (tests/test_models.py:62-95) and hold each step's
+    logits, and the prefill's last, against the full forward's.  Records
+    each layer's expert set per token in both runs: a (row, position)
+    pair is routed alike when every layer chose the same top-k experts
+    for every token of that row up to that position.  Returns a dict:
+    ``max``/``bad``/``n`` (max abs diff, logits beyond rtol/atol ``tol``,
+    logits compared), ``pairs`` and ``alike`` ((row, position) pairs, and
+    of those routed alike), and ``max_alike``/``bad_alike`` over them."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    B, L = tok_t.shape
+    lp_, nl, k = L - 8, cfg.n_layers, cfg.moe.top_k
+    seen = []                    # each MoE call's [T, k] expert sets
+    hooks = [layer.moe.register_forward_hook(
+        lambda mod, args, out: seen.append(out[1]["ids"].sort(-1).values))
+        for layer in model.layers]
+    try:
+        with torch.inference_mode():
+            full, _, _ = lm.forward(cfg, model, {"tokens": tok_t})
+            last, cache = make_prefill_step(cfg)(
+                model, {"tokens": tok_t[:, :lp_]})
+            pairs = [(last, full[:, lp_ - 1])]
+            cache = {n: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 8))
+                     for n, a in cache.items()}
+            step = make_serve_step(cfg)
+            for i in range(lp_, L):
+                pos = torch.full((B,), i, dtype=torch.int32,
+                                 device=tok_t.device)
+                logits, cache = step(model, cache, {"tokens": tok_t[:, i],
+                                                    "pos": pos})
+                pairs.append((logits, full[:, i]))
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(seen) == nl * (L - lp_ + 2), "serve: a MoE call was missed")
+    per_run = [torch.stack(seen[j:j + nl]) for j in range(0, len(seen), nl)]
+    want = per_run[0].reshape(nl, B, L, k)
+    got = torch.cat([r.reshape(nl, B, -1, k) for r in per_run[1:]], dim=2)
+    moved = (want != got).any(-1).any(0).cummax(1).values[:, lp_ - 1:]
+    diff = torch.stack([(a.float() - b.float()).abs() for a, b in pairs], 1)
+    ref = torch.stack([b.float().abs() for _, b in pairs], 1)
+    bad = (diff > tol + tol * ref).sum(-1)                  # [B, 9]
+    alike = ~moved
+    return {"max": float(diff.max()), "bad": int(bad.sum()),
+            "n": diff.numel(), "pairs": alike.numel(),
+            "alike": int(alike.sum()),
+            "max_alike": float(diff[alike].max()) if alike.any() else 0.0,
+            "bad_alike": int(bad[alike].sum())}
+
+
+# --------------------------------------------------------------- phase 12 --
+
+def smoke_chain():
+    """(d): the smoke config with one set of converted parameters, on the
+    card and through the CPU port: float32 within 1e-3, and bf16, the
+    serving precision, within 5e-2 (its capacity factor 8 drops
+    nothing)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.convert import convert_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+
+    base = get_smoke(MOE_ARCH)
+    flat = {n: t.numpy() for n, t in lm.init_params(
+        dataclasses.replace(base, dtype="float32"),
+        torch.Generator().manual_seed(SEED)).items()}
+    prompts = np.random.default_rng(SEED + 1).integers(0, base.vocab_size,
+                                                       (4, 32))
+    for dtype, tol in (("float32", 1e-3), ("bfloat16", 5e-2)):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            params = convert_params(flat, cfg, dev)
+            with torch.inference_mode():
+                logits, _, _ = lm.forward(cfg, params, {
+                    "tokens": torch.tensor(prompts, device=dev)})
+            outs[dev] = (logits.float().cpu(), generate(
+                cfg, params, {"tokens": prompts}, 4, dev))
+        (lg, g), (lc, c) = outs["cuda"], outs["cpu"]
+        # greedy decode feeds back its argmax: the steps are compared up
+        # to the first one whose token differs on some row (its logits
+        # still come from equal inputs)
+        same = (g.tokens.cpu() == c.tokens).all(0).tolist() + [False]
+        n = same.index(False) + 1
+        gl, cl = g.logits.float().cpu()[:, :n], c.logits.float()[:, :n]
+        torch.testing.assert_close(lg, lc, rtol=tol, atol=tol)
+        torch.testing.assert_close(gl, cl, rtol=tol, atol=tol)
+        print(f"chain: {cfg.name} {dtype} on the card equals the CPU port "
+              f"within {tol:g} (forward max abs diff "
+              f"{float((lg - lc).abs().max()):.3e}, generate "
+              f"{float((gl - cl).abs().max()):.3e} over {min(n, 4)} of 4 "
+              f"steps; tokens equal: {torch.equal(g.tokens.cpu(), c.tokens)}"
+              ")", flush=True)
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels.switch_txn import build
+    from repro_torch.kernels import build
+    from repro_torch.kernels.moe_route import moe_route as mr
     from repro_torch.kernels.switch_txn import switch_txn as tk
 
     t_start = time.perf_counter()
@@ -703,23 +1096,33 @@ def main():
           f"cuda {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    lib = build.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {build.build_seconds if build.build_seconds is not None else 'cached'})",
-          flush=True)
+    with ThreadPoolExecutor(len(build.LIBRARIES)) as pool:  # one nvcc each
+        libs = dict(zip(build.LIBRARIES,
+                        pool.map(build.library, build.LIBRARIES)))
+    lib = libs["switch_txn"]
+    nvcc = ", ".join(f"{n} {build.build_seconds[n]:.2f} s"
+                     if n in build.build_seconds else f"{n} cached"
+                     for n in libs)
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, concurrent: "
+          f"{nvcc})", flush=True)
 
     kernels = kernel_checks(tk, lib, dev)
     kernels.append(scan_kernel_checks(tk, lib, dev))
+    kernels.append(moe_route_checks(mr, libs["moe_route"], dev))
     launches, gpu, cpu, hi, p = main_path(tk, smi)
     read_path(tk, gpu, cpu, hi)
     scan_launches, scan_gpu = scan_path(tk)
     launches["scan_prune"] = scan_launches["scan_prune"]
-    for kd in kernels:
-        kd["launches"] = launches[kd["name"]]
     sharded_path(tk, scan_gpu, p)
     async_read_path(tk, hi, p)
     cadd_path(tk)
     profile_batch(gpu, p)
+    launches["moe_route"] = serve_path(mr)
+    for kd in kernels:
+        kd["launches"] = launches[kd["name"]]
+    check(all(kd["launches"] > 0 for kd in kernels),
+          f"a kernel was not launched on its path: {launches}")
+    smoke_chain()
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,13 @@
-"""Carry a reference cluster's state into the port.
+"""Carry the reference's state into the port.
 
-The reference keeps its state as a register file, a hot-index placement
-and per-node stores; this module turns their host (numpy / dict) form
-into the port's: a register tensor on a given device, a port ``HotIndex``
-and plain per-node store dicts.  It is the port's loader of "weights": a
-port ``Cluster`` started from the result continues exactly where the
-reference left off.
+``convert_state``: the reference cluster keeps its state as a register
+file, a hot-index placement and per-node stores; their host (numpy /
+dict) form becomes the port's: a register tensor on a given device, a
+port ``HotIndex`` and plain per-node store dicts.  A port ``Cluster``
+started from the result continues exactly where the reference left off.
+
+``convert_params``: the reference model zoo's parameters (flat numpy
+arrays) become the port's model parameters on a given device.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.hotset import HotIndex
 from repro_torch.core.layout import Placement
+from repro_torch.models.lm import build_defs
+from repro_torch.models.params import torch_dtype
 
 
 def convert_state(registers: np.ndarray,
@@ -48,3 +52,41 @@ def convert_state(registers: np.ndarray,
         d.update({int(k): int(v) for k, v in st.items()})
         out_stores.append(d)
     return regs_t, HotIndex(Placement(slot=slot)), out_stores
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A host tensor copy of ``a``; a bfloat16 array (``ml_dtypes``, as
+    JAX hands out) is carried over bit for bit."""
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16)).view(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def convert_params(flat: Mapping[str, np.ndarray], cfg, device=None):
+    """The reference's model parameters as the port's.
+
+    flat: ``{name: array}`` under ``repro.models.params.flatten`` names
+    (``"embed"``, ``"layers/wq"``, ...), e.g. of ``repro.models.lm.
+    init_params``.  The mapping is the identity on names and shapes: the
+    port keeps the reference's flat names and its ``layers/*`` tensors
+    stacked over layers (``repro_torch.models.lm.LM`` slices them per
+    layer without copying).  Each tensor is cast to its ``ParamDef``'s
+    dtype (the router's float32) or else ``cfg.dtype``; a float32 or
+    bfloat16 input of a bfloat16 parameter converts exactly.  device:
+    ``None`` -> ``cuda``, which must exist.  A missing or extra name, or
+    a wrong shape, raises."""
+    device = resolve_device(device)
+    defs = build_defs(cfg)
+    missing, extra = set(defs) - set(flat), set(flat) - set(defs)
+    if missing or extra:
+        raise KeyError(f"parameter names differ from build_defs: missing "
+                       f"{sorted(missing)}, extra {sorted(extra)}")
+    out = {}
+    for name, d in defs.items():
+        a = np.asarray(flat[name])
+        if a.shape != d.shape:
+            raise ValueError(f"{name}: expected shape {d.shape}, got "
+                             f"{a.shape}")
+        out[name] = _tensor(a).to(device=device,
+                                  dtype=torch_dtype(d.dtype or cfg.dtype))
+    return out

@@ -1,0 +1,15 @@
+"""Wrapper over the moe_route kernel (counterpart of
+``repro/kernels/moe_route/ops.py``).  The reference pads the stream to a
+multiple of its Pallas block with an INT32_MAX sentinel; that constraint
+belongs to the TPU's sequential grid, and the CUDA kernel takes any N, so
+there is no ``block`` argument and no padding here."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.moe_route.moe_route import moe_route_call
+
+
+def route_positions(sorted_ids):
+    """sorted_ids: [N] int32 ascending.  Returns [N] int32 positions."""
+    return moe_route_call(sorted_ids.to(torch.int32).contiguous())

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) kernels of the switch-transaction path, behind a plain C
-// interface loaded with ctypes (see ../build.py).
+// interface loaded with ctypes (see ../../build.py).
 //
 // switch_txn: replaces repro/kernels/switch_txn/switch_txn.py::_kernel
 // (switch_txn_call).  The TPU kernel keeps the whole register file in VMEM

@@ -7,7 +7,7 @@ switch_txn_call`` (Pallas ``_kernel``), ``result_gather_call`` replaces
 replaces ``scan_prune_call`` (``_scan_prune_kernel``).  Each launcher
 takes int32, contiguous, 1-D tensors: a CUDA tensor always goes to the
 hand-written kernel in ``csrc/switch_txn.cu`` (built at first use by
-``build.py``), a CPU tensor to the plain version below.  There is no
+``kernels/build.py``), a CPU tensor to the plain version below.  There is no
 fallback: a failed build or launch raises.  ``LAUNCHES`` counts kernel
 launches only.
 
@@ -19,40 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.build import (check_int32, library, raise_on,
+                                      same_device)
+
 NOP, READ, WRITE, ADD, CADD = 0, 1, 2, 3, 4
 
 LAUNCHES = {"switch_txn": 0, "result_gather": 0, "scan_prune": 0}
 
 AGG_MIN_EMPTY = 2147483647        # int32 identities the aggregate lanes
 AGG_MAX_EMPTY = -2147483648       # start from (empty-scan sentinels)
-
-
-def _check(name: str, t, n=None):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
-    if t.dim() != 1:
-        raise ValueError(f"{name}: expected a 1-D tensor, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if n is not None and t.shape[0] != n:
-        raise ValueError(f"{name}: expected length {n}, got {t.shape[0]}")
-
-
-def _same_device(*ts):
-    dev = ts[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    for t in ts[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on {dev} and {t.device}")
-    return dev
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -102,22 +77,21 @@ def switch_txn_plain(registers_flat, op, g, val):
 def switch_txn_call(registers_flat, op, g, val):
     """registers_flat: [n_slots] int32, updated in place; op/g/val: [N]
     int32.  Returns (registers_flat, res [N], ok [N] int32)."""
-    _check("registers_flat", registers_flat)
-    _check("op", op)
+    check_int32("registers_flat", registers_flat)
+    check_int32("op", op)
     n = op.shape[0]
-    _check("g", g, n)
-    _check("val", val, n)
+    check_int32("g", g, n)
+    check_int32("val", val, n)
     if registers_flat.shape[0] < 1:
         raise ValueError("registers_flat is empty")
-    dev = _same_device(registers_flat, op, g, val)
+    dev = same_device(registers_flat, op, g, val)
     if dev.type == "cpu":
         return switch_txn_plain(registers_flat, op, g, val)
     res = torch.empty(n, dtype=torch.int32, device=dev)
     ok = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return registers_flat, res, ok
-    from repro_torch.kernels.switch_txn.build import library
-    lib = library()
+    lib = library("switch_txn")
     # the permutation the kernel walks: stream positions in stable slot
     # order (the TPU kernel needs none — its grid walks the stream in order)
     sorted_slot, perm = torch.sort(_sort_key(registers_flat, op, g),
@@ -128,7 +102,7 @@ def switch_txn_call(registers_flat, op, g, val):
                                 val.data_ptr(), sorted_slot.data_ptr(),
                                 perm.data_ptr(), res.data_ptr(),
                                 ok.data_ptr(), n, stream)
-    _raise_on(err, "switch_txn")
+    raise_on(err, "switch_txn")
     LAUNCHES["switch_txn"] += 1
     return registers_flat, res, ok
 
@@ -143,23 +117,22 @@ def result_gather_plain(src, idx):
 def result_gather_call(src, idx):
     """Result-compaction gather: src [N] int32, idx [M] int32.  Returns
     out [M] int32 with out[i] = src[clamp(idx[i], 0, N-1)]."""
-    _check("src", src)
-    _check("idx", idx)
+    check_int32("src", src)
+    check_int32("idx", idx)
     if src.shape[0] < 1:
         raise ValueError("src is empty")
-    dev = _same_device(src, idx)
+    dev = same_device(src, idx)
     if dev.type == "cpu":
         return result_gather_plain(src, idx)
     m = idx.shape[0]
     out = torch.empty(m, dtype=torch.int32, device=dev)
     if m == 0:
         return out
-    from repro_torch.kernels.switch_txn.build import library
-    lib = library()
+    lib = library("switch_txn")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.result_gather_launch(src.data_ptr(), src.shape[0],
                                    idx.data_ptr(), out.data_ptr(), m, stream)
-    _raise_on(err, "result_gather")
+    raise_on(err, "result_gather")
     LAUNCHES["result_gather"] += 1
     return out
 
@@ -203,12 +176,12 @@ def scan_prune_call(src, lo, hi, cap):
     [cap] int32 (0-padded), idx [cap] int32 stream positions (-1-padded)
     and agg [4] int32 = (count, sum, min, max) over ALL matches; ``count
     > cap`` tells the caller the output was truncated."""
-    _check("src", src)
+    check_int32("src", src)
     lo, hi = _int32("lo", lo), _int32("hi", hi)
     cap = int(cap)
     if cap < 0:
         raise ValueError(f"cap must be >= 0, got {cap}")
-    dev = _same_device(src)
+    dev = same_device(src)
     if dev.type == "cpu":
         return scan_prune_plain(src, lo, hi, cap)
     vals = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -218,8 +191,7 @@ def scan_prune_call(src, lo, hi, cap):
     m = src.shape[0]
     if m == 0:
         return vals, idx, agg
-    from repro_torch.kernels.switch_txn.build import library
-    lib = library()
+    lib = library("switch_txn")
     n_scratch = lib.scan_prune_scratch_len(m)
     scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -227,6 +199,6 @@ def scan_prune_call(src, lo, hi, cap):
                                 vals.data_ptr(), idx.data_ptr(),
                                 agg.data_ptr(), scratch.data_ptr(), n_scratch,
                                 stream)
-    _raise_on(err, "scan_prune")
+    raise_on(err, "scan_prune")
     LAUNCHES["scan_prune"] += 1
     return vals, idx, agg
