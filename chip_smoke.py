@@ -8,14 +8,20 @@ Phases (each one exits non-zero on failure):
 2. build    — compile every kernel library from ``src/repro_torch`` (one
               nvcc per source, all started together);
 3. kernels  — each kernel against its plain PyTorch version on the card at
-              the hot path's shapes, timed with CUDA events; scan_prune
+              the hot path's shapes, timed with CUDA events: the
+              single-CTA switch_txn (with its gather) on the skewed check
+              stream at every tile, a ragged N on unaligned views and
+              N = SMEM_MAX_N, the large-N path at 2 x SMEM_MAX_N; the
+              lean result_gather launcher against torch.take in turns,
+              and with each piece of its host path removed; scan_prune
               also over the whole 24 x 65536 register file at several
               selectivities and caps; moe_route at the reference test
               shapes, edge streams and the serving path's shapes;
 4. main     — P4DB's hot-transaction path at full width: an 8-node YCSB-A
               cluster on a 24 x 65536 switch register file in ``pallas``
-              mode, 8 ``run_batch`` calls of 256 txns, held against the
-              same txns through a CPU port cluster, then crash recovery;
+              mode, 8 ``run_batch`` calls of 256 txns (every hot group one
+              single-CTA launch), held against the same txns through a
+              CPU port cluster, then crash recovery;
 5. reads    — the read tier on that cluster: ``read_batch`` over 8 x 256
               YCSB-C txns and ``Cluster.scan`` over its hot keys, against
               the CPU port cluster;
@@ -30,7 +36,8 @@ Phases (each one exits non-zero on failure):
               ``pallas`` mode and in ``auto`` mode (the serial engine),
               against the CPU port;
 10. profile — one more YCSB batch under ``torch.profiler`` for the device's
-              busy share;
+              busy share, and one hot dispatch alone, which must be one
+              device kernel, the single-CTA switch_txn;
 11. serve   — the model zoo's MoE serving path at full width:
               ``qwen3_moe_235b_a22b`` cut to 4 layers, bf16, random
               parameters from a seeded generator, 8 requests x 256
@@ -53,6 +60,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -114,90 +122,242 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 # ---------------------------------------------------------------- phase 3 --
 
-def kernel_checks(tk, lib, dev):
-    rng = np.random.default_rng(SEED)
-    n_slots, n = S * R, B * K
+def _check_stream(rng, n, skew=0.5):
+    """The skewed check stream over the full-width file: all five
+    opcodes, ``skew`` of it on three hot slots, int32 edge registers and
+    operands, four slots past the file's end (clamped)."""
+    n_slots = S * R
     regs = rng.integers(-1000, 1000, n_slots).astype(np.int32)
     hot = np.array([7, 3 * R + 11, n_slots - 1])
     regs[hot] = [2**31 - 20, -2**31 + 5, 0]                  # int32 edges
     op = rng.integers(0, 5, n).astype(np.int32)             # all 5 opcodes
     g = rng.integers(0, n_slots, n).astype(np.int32)
-    skew = rng.random(n) < 0.5                               # hot-key skew
-    g[skew] = hot[rng.integers(0, 3, int(skew.sum()))]
+    on_hot = rng.random(n) < skew                            # hot-key skew
+    g[on_hot] = hot[rng.integers(0, 3, int(on_hot.sum()))]
     g[rng.integers(0, n, 4)] = n_slots + 7                   # clamped slots
     val = rng.integers(-100, 100, n).astype(np.int32)
     edge = rng.random(n) < 0.05
     val[edge] = rng.choice([2**31 - 1, -2**31, 2**30], int(edge.sum()))
-    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
-    regs_t, op_t, g_t, val_t = t(regs), t(op), t(g), t(val)
+    idx = rng.integers(0, n + 64, n).astype(np.int32)       # some past end
+    idx[rng.integers(0, n, 8)] = -3                         # low clamp
+    return regs, op, g // R, g % R, g, val, idx
 
-    r_k, res_k, ok_k = tk.switch_txn_call(regs_t.clone(), op_t, g_t, val_t)
-    r_p, res_p, ok_p = tk.switch_txn_plain(regs_t.clone(), op_t, g_t, val_t)
+
+def _smem_case(tk, dev, rng, n, offset=0):
+    """One stream through switch_txn_gather_call against switch_txn_plain
+    + result_gather_plain, exactly.  ``offset`` > 0 hands the kernel
+    views that start ``offset`` int32 into their buffers (no 16-byte
+    loads).  Returns (max abs error, launches by path, CADDs refused)."""
+    regs, op, st, rg, g, val, idx = _check_stream(rng, n)
+    t = lambda a: torch.tensor(np.concatenate(
+        [np.zeros(offset, np.int32), a]), device=dev)[offset:]
+    regs_t = torch.tensor(regs, device=dev)
+    before = dict(tk.LAUNCHES)
+    r_k, res_k, ok_k, c_k = tk.switch_txn_gather_call(
+        regs_t.clone(), t(op), t(st), t(rg), t(val), R, t(idx))
+    launched = {k: tk.LAUNCHES[k] - before[k] for k in before}
+    r_p, res_p, ok_p = tk.switch_txn_plain(regs_t.clone(), t(op), t(g),
+                                           t(val))
+    c_p = tk.result_gather_plain(res_p, t(idx))
     torch.cuda.synchronize()
-    for name, a, b in (("registers", r_k, r_p), ("res", res_k, res_p),
-                       ("ok", ok_k, ok_p)):
-        check(torch.equal(a, b), f"switch_txn {name} differ from plain")
-    check(int((ok_k == 0).sum()) > 0, "no CADD was refused in the check")
-    err_txn = max(int((a.long() - b.long()).abs().max()) for a, b in
-                  ((r_k, r_p), (res_k, res_p), (ok_k, ok_p)))
+    check(ok_k.dtype == torch.bool, "switch_txn: ok is not torch.bool")
+    pairs = (("registers", r_k, r_p), ("res", res_k, res_p),
+             ("ok", ok_k, ok_p.bool()), ("compact", c_k, c_p))
+    for name, a, b in pairs:
+        check(torch.equal(a, b), f"switch_txn {name} differ from plain at "
+              f"N={n} (offset {offset})")
+    err = max(int((a.long() - b.long()).abs().max()) for _, a, b in pairs)
+    return err, launched, int((~ok_k).sum())
 
-    work = regs_t.clone()
-    ms_txn = time_cuda(lambda: tk.switch_txn_call(work, op_t, g_t, val_t),
-                       inner=50, reps=11)
-    plain_ms_txn = time_cuda(
-        lambda: tk.switch_txn_plain(work, op_t, g_t, val_t), inner=2, reps=5)
-    sorted_g, perm = torch.sort(tk._sort_key(work, op_t, g_t), stable=True)
-    res_buf, ok_buf = torch.empty_like(op_t), torch.empty_like(op_t)
+
+def _ptxas_lines(log: str):
+    """'kernel: N registers, F bytes stack frame, S bytes spill stores, L
+    bytes spill loads' per entry function of a ptxas -v log."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            for tag in ("switch_txn_smem_kernel", "switch_txn_kernel",
+                        "result_gather_kernel", "scan_count_kernel",
+                        "scan_offsets_kernel", "scan_write_kernel",
+                        "moe_route_kernel"):
+                if tag in name:
+                    tail = name.split(tag)[1]
+                    tmpl = (re.findall(r"Li(\d+)E", tail)
+                            if tail.startswith("I") else [])
+                    name = tag + (f"<{','.join(tmpl)}>" if tmpl else "")
+                    break
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            out.append(f"{name}: {regs} registers, {spill}")
+            name = None
+    return out
+
+
+def kernel_checks(tk, lib, dev):
+    rng = np.random.default_rng(SEED)
+    n_slots, n = S * R, B * K
+    smax = tk.SMEM_MAX_N
+    check(lib.switch_txn_smem_bytes(smax) > 0
+          and lib.switch_txn_smem_bytes(smax + 1) == 0,
+          f"SMEM_MAX_N={smax} disagrees with the CUDA source")
+    smem_bytes = {k: lib.switch_txn_smem_bytes(k)
+                  for k in (256, 1024, 4096, smax)}
+    # (N, offset, path): every tile of the single-CTA kernel, a ragged N
+    # on unaligned views, and the large-N path at 2 x SMEM_MAX_N
+    cases = [(16, 0, "switch_txn_smem"), (1000, 1, "switch_txn_smem"),
+             (n, 0, "switch_txn_smem"), (2999, 3, "switch_txn_smem"),
+             (smax, 0, "switch_txn_smem"), (2 * smax, 0, "switch_txn")]
+    err_txn, lines = 0, []
+    for n_case, offset, path in cases:
+        err, launched, refused = _smem_case(tk, dev, rng, n_case, offset)
+        err_txn = max(err_txn, err)
+        want = ({"switch_txn_smem": 1} if path == "switch_txn_smem" else
+                {"switch_txn": 1, "result_gather": 1})
+        check({k: v for k, v in launched.items() if v} == want,
+              f"N={n_case} took {launched}, expected {want}")
+        check(refused > 0 or n_case < 1000,
+              f"no CADD was refused at N={n_case}")
+        lines.append(f"N={n_case}{' (offset %d)' % offset if offset else ''}"
+                     f" {path}")
+
+    # the check stream at the main path's N = 4096, timed
+    regs, op, st, rg, g, val, idx = _check_stream(
+        np.random.default_rng(SEED), n)
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+    work, op_t, st_t, rg_t, g_t, val_t, idx_t = (t(a) for a in (
+        regs, op, st, rg, g, val, idx))
+    m = idx_t.shape[0]
+    res_buf = torch.empty_like(op_t)
+    ok_buf = torch.empty(n, dtype=torch.bool, device=dev)
+    cmp_buf = torch.empty_like(idx_t)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel_ms_txn = time_cuda(lambda: lib.switch_txn_launch(
-        work.data_ptr(), n_slots, op_t.data_ptr(), val_t.data_ptr(),
-        sorted_g.data_ptr(), perm.data_ptr(), res_buf.data_ptr(),
-        ok_buf.data_ptr(), n, stream), inner=200, reps=11)
-    distinct = int(torch.unique(sorted_g[sorted_g < n_slots]).numel())
-    # stream in (op, g, val), res + ok out, one read + one write per
-    # distinct register touched; one RMW per instruction
-    b_txn, by_txn = bound_ms(4 * 3 * n + 4 * 2 * n + 8 * distinct, n)
 
-    m = 4096
-    src = res_k
-    idx = rng.integers(0, n + 64, m).astype(np.int32)       # some past end
-    idx[rng.integers(0, m, 8)] = -3                         # low clamp
-    idx_t = t(idx)
+    def large_path(o, stg, rgs, v, ix):           # the parent's hot path
+        _, res, ok = tk.switch_txn_call(work, o, stg * R + rgs, v)
+        return tk.result_gather_call(res, ix), ok.to(torch.bool)
+
+    ms_txn = time_cuda(lambda: tk.switch_txn_gather_call(
+        work, op_t, st_t, rg_t, val_t, R, idx_t), inner=50, reps=11)
+    kernel_ms_txn = time_cuda(lambda: lib.switch_txn_smem_launch(
+        work.data_ptr(), n_slots, R, op_t.data_ptr(), st_t.data_ptr(),
+        rg_t.data_ptr(), val_t.data_ptr(), n, res_buf.data_ptr(),
+        ok_buf.data_ptr(), idx_t.data_ptr(), cmp_buf.data_ptr(), m, stream),
+        inner=200, reps=11)
+    # the same kernel on a stream with no hot slot: load, sort and
+    # epilogue without a long walk
+    uni = [t(a) for a in _check_stream(np.random.default_rng(SEED + 8), n,
+                                       skew=0.0)]
+    uniform_ms = time_cuda(lambda: lib.switch_txn_smem_launch(
+        work.data_ptr(), n_slots, R, uni[1].data_ptr(), uni[2].data_ptr(),
+        uni[3].data_ptr(), uni[5].data_ptr(), n, res_buf.data_ptr(),
+        ok_buf.data_ptr(), uni[6].data_ptr(), cmp_buf.data_ptr(), m, stream),
+        inner=200, reps=11)
+    # and at N = 16 (a B=1 group; the 256 tile): launch plus the least
+    # work the kernel does
+    tiny = [t(a) for a in _check_stream(np.random.default_rng(SEED + 7), 16)]
+    tiny_ms = time_cuda(lambda: lib.switch_txn_smem_launch(
+        work.data_ptr(), n_slots, R, tiny[1].data_ptr(), tiny[2].data_ptr(),
+        tiny[3].data_ptr(), tiny[5].data_ptr(), 16, res_buf.data_ptr(),
+        ok_buf.data_ptr(), tiny[6].data_ptr(), cmp_buf.data_ptr(), 16,
+        stream), inner=200, reps=11)
+    large_ms = time_cuda(lambda: large_path(op_t, st_t, rg_t, val_t, idx_t),
+                         inner=50, reps=11)
+    plain_ms_txn = time_cuda(lambda: tk.result_gather_plain(
+        tk.switch_txn_plain(work, op_t, g_t, val_t)[1], idx_t),
+        inner=2, reps=5)
+    big = [t(a) for a in _check_stream(np.random.default_rng(SEED + 9),
+                                       2 * smax)]
+    large_2x_ms = time_cuda(lambda: large_path(big[1], big[2], big[3],
+                                               big[5], big[6]),
+                            inner=20, reps=11)
+    distinct = int(torch.unique(torch.where(
+        op_t == 0, n_slots, g_t.clamp(0, n_slots - 1))).numel()) - 1
+    # op/stage/reg/val and idx in, res + ok (bytes) + compact out, one read
+    # and one write per distinct register touched; one RMW per instruction
+    b_txn, by_txn = bound_ms(4 * 4 * n + 5 * n + 8 * m + 8 * distinct, n)
+
+    # result_gather: the lean launcher and torch.take in turns
+    src = tk.switch_txn_gather_call(work.clone(), op_t, st_t, rg_t, val_t, R
+                                    )[1]
     out_k = tk.result_gather_call(src, idx_t)
     out_p = tk.result_gather_plain(src, idx_t)
     torch.cuda.synchronize()
     check(torch.equal(out_k, out_p), "result_gather differs from plain")
     err_g = int((out_k.long() - out_p.long()).abs().max())
-    ms_g = time_cuda(lambda: tk.result_gather_call(src, idx_t),
-                     inner=200, reps=11)
+    idx_c = idx_t.clamp(0, n - 1).long()
+    gather = lambda: tk.result_gather_call(src, idx_t)
+    take = lambda: torch.take(src, idx_c)
+    turns = [time_cuda(f, inner=200, reps=11)
+             for f in (gather, take, take, gather) * 2]
+    ms_g = statistics.median(turns[0::4] + turns[3::4])
+    lib_ms_g = statistics.median(turns[1::4] + turns[2::4])
     plain_ms_g = time_cuda(lambda: tk.result_gather_plain(src, idx_t),
                            inner=200, reps=11)
-    out_buf = torch.empty_like(idx_t)
-    kernel_ms_g = time_cuda(lambda: lib.result_gather_launch(
-        src.data_ptr(), n, idx_t.data_ptr(), out_buf.data_ptr(), m, stream),
-        inner=200, reps=11)
-    idx_c = idx_t.clamp(0, n - 1).long()
-    lib_ms_g = time_cuda(lambda: torch.take(src, idx_c), inner=200, reps=11)
+    # the launcher with each piece removed in turn: a replica of its body
+    fn, get_stream, d = tk._GATHER, tk._STREAM, src.get_device()
+    out_buf, h, i32 = torch.empty_like(idx_t), get_stream(d), torch.int32
+
+    def replica(checks=True, alloc=True, lookup=True):
+        def launch():
+            if checks and not (
+                    src.is_cuda and idx_t.is_cuda and src.dtype is i32
+                    and idx_t.dtype is i32 and src.ndim == 1
+                    and idx_t.ndim == 1 and src.is_contiguous()
+                    and idx_t.is_contiguous() and src.numel() > 0
+                    and src.get_device() == idx_t.get_device()
+                    and idx_t.numel() > 0):
+                fail("result_gather replica: a check failed")
+            out = torch.empty_like(idx_t) if alloc else out_buf
+            fn(src.data_ptr(), n, idx_t.data_ptr(), out.data_ptr(), m,
+               get_stream(d) if lookup else h)
+        return launch
+
+    pieces = {"replica": replica(), "no checks": replica(checks=False),
+              "no allocation": replica(alloc=False),
+              "no stream lookup": replica(lookup=False),
+              "bare C call": replica(False, False, False)}
+    breakdown = {k: time_cuda(f, inner=200, reps=11)
+                 for k, f in pieces.items()}
+    kernel_ms_g = breakdown["bare C call"]
     b_g, by_g = bound_ms(4 * 3 * m, m)                       # idx, src, out
-    print(f"kernels: switch_txn {ms_txn * 1e3:.2f} us/call "
-          f"(bare launch {kernel_ms_txn * 1e3:.2f} us, plain "
-          f"{plain_ms_txn * 1e3:.1f} us, {distinct} distinct slots); "
-          f"result_gather {ms_g * 1e3:.2f} us (bare launch "
-          f"{kernel_ms_g * 1e3:.2f} us, plain {plain_ms_g * 1e3:.2f} us, "
-          f"torch.take {lib_ms_g * 1e3:.2f} us)", flush=True)
+    print(f"kernels: switch_txn_smem equal to plain on "
+          f"{', '.join(lines)} (registers, res, ok, compact); shared memory "
+          f"by tile {smem_bytes} bytes", flush=True)
+    print(f"kernels: switch_txn_smem {ms_txn * 1e3:.2f} us/call with the "
+          f"gather (bare launch {kernel_ms_txn * 1e3:.2f} us, plain "
+          f"{plain_ms_txn * 1e3:.1f} us, {distinct} distinct slots, bound "
+          f"{b_txn * 1e3:.4f} us; bare on a stream with no hot slot "
+          f"{uniform_ms * 1e3:.2f} us, at N=16 {tiny_ms * 1e3:.2f} us); "
+          f"large-N path at N={n} "
+          f"{large_ms * 1e3:.2f} us, at N={2 * smax} "
+          f"{large_2x_ms * 1e3:.2f} us", flush=True)
+    print(f"kernels: result_gather {ms_g * 1e3:.2f} us/call, torch.take "
+          f"{lib_ms_g * 1e3:.2f} us (medians of turns gather, take, take, "
+          f"gather, twice: " + " / ".join(f"{x * 1e3:.2f}" for x in turns)
+          + f"), plain {plain_ms_g * 1e3:.2f} us; launcher "
+          "with a piece removed: " + ", ".join(
+              f"{k} {v * 1e3:.2f} us" for k, v in breakdown.items()),
+          flush=True)
     return [
-        dict(name="switch_txn", route="cuda",
+        dict(name="switch_txn", route="cuda", path="switch_txn_smem",
              source="src/repro_torch/kernels/switch_txn/csrc/switch_txn.cu",
              replaces="src/repro/kernels/switch_txn/switch_txn.py:29",
              launches=0, max_abs_err=err_txn, ms=ms_txn,
              plain_ms=plain_ms_txn, bound_ms=b_txn, bound_by=by_txn,
-             library_ms=None, kernel_ms=kernel_ms_txn, shape=[n_slots, n]),
+             library_ms=None, kernel_ms=kernel_ms_txn, shape=[n_slots, n, m],
+             smem_bytes=smem_bytes, kernel_ms_no_hot_slot=uniform_ms,
+             kernel_ms_n16=tiny_ms,
+             large_n=dict(ms_at_4096=large_ms, ms_at_2x_max=large_2x_ms)),
         dict(name="result_gather", route="cuda",
              source="src/repro_torch/kernels/switch_txn/csrc/switch_txn.cu",
              replaces="src/repro/kernels/switch_txn/switch_txn.py:61",
              launches=0, max_abs_err=err_g, ms=ms_g, plain_ms=plain_ms_g,
              bound_ms=b_g, bound_by=by_g, library_ms=lib_ms_g,
-             kernel_ms=kernel_ms_g, shape=[n, m]),
+             kernel_ms=kernel_ms_g, shape=[n, m], turns_ms=turns,
+             breakdown=breakdown),
     ]
 
 
@@ -352,13 +512,13 @@ def moe_route_checks(mr, lib, dev):
                            reps=11)
         b, by = bound_ms(8 * n, n)          # ids read once, pos written once
         timed[name] = dict(n=n, ms=ms, kernel_ms=bare, plain_ms=plain,
-                           library_ms=lib_ms, bound_ms=b, bound_by=by)
+                           searchsorted_ms=lib_ms, bound_ms=b, bound_by=by)
     print("kernels: moe_route equal to plain on "
           + ", ".join(f"{k} (N={len(v)})" for k, v in cases.items())
           + "; N=0 not launched; " + "; ".join(
               f"{k} N={d['n']}: {d['ms'] * 1e3:.2f} us/call (bare "
               f"{d['kernel_ms'] * 1e3:.2f} us, plain {d['plain_ms'] * 1e3:.2f}"
-              f" us, searchsorted {d['library_ms'] * 1e3:.2f} us, bound "
+              f" us, searchsorted {d['searchsorted_ms'] * 1e3:.2f} us, bound "
               f"{d['bound_ms'] * 1e3:.4f} us)" for k, d in timed.items()),
           flush=True)
     p = timed["prefill"]
@@ -367,8 +527,10 @@ def moe_route_checks(mr, lib, dev):
                 replaces="src/repro/kernels/moe_route/moe_route.py:24",
                 launches=0, max_abs_err=err, ms=p["ms"],
                 plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
-                bound_by=p["bound_by"], library_ms=p["library_ms"],
-                library="torch.searchsorted(ids, ids): first index only",
+                bound_by=p["bound_by"], library_ms=None,
+                searchsorted_ms=p["searchsorted_ms"],
+                library="none: torch.searchsorted(ids, ids) gives each "
+                "run's first index only",
                 kernel_ms=p["kernel_ms"], shape=[p["n"]],
                 decode=timed["decode"])
 
@@ -417,10 +579,12 @@ def main_path(tk, label):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = dict(tk.LAUNCHES)
-    check(launches["switch_txn"] > 0 and launches["result_gather"] > 0,
-          f"a kernel was not launched on the main path: {launches}")
-    check(gpu.switch.dispatch_count == launches["switch_txn"],
-          "dispatches and switch_txn launches disagree")
+    check(launches["switch_txn_smem"] > 0, f"the single-CTA switch_txn was "
+          f"not launched on the main path: {launches}")
+    check(launches["switch_txn"] == 0 and launches["result_gather"] == 0,
+          f"a hot group left the single-CTA path: {launches}")
+    check(gpu.switch.dispatch_count == launches["switch_txn_smem"],
+          "dispatches and switch_txn_smem launches disagree")
 
     out_cpu = []
     for b in range(8):
@@ -430,9 +594,11 @@ def main_path(tk, label):
     check(gpu.stats["hot"] > 0, "main: no hot txns")
 
     before = gpu.switch.read_all()
+    _reset(tk)
     t0 = time.perf_counter()
     known, unknown = gpu.crash_switch_and_recover()
     t_rec = time.perf_counter() - t0
+    rec_launches = dict(tk.LAUNCHES)
     check(before.tobytes() == gpu.switch.read_all().tobytes(),
           "main: registers after crash recovery differ")
 
@@ -442,7 +608,7 @@ def main_path(tk, label):
             for s_ in tr.spans:
                 spans[s_.name] = spans.get(s_.name, 0.0) + s_.duration
     total = sum(times)
-    groups = launches["switch_txn"]
+    groups = launches["switch_txn_smem"]
     print(f"main [{label}]: {len(txns)} txns ({gpu.stats['hot']} hot) in "
           f"{total:.4f} s = {len(txns) / total:.1f} txn/s, "
           f"{gpu.stats['hot'] / total:.1f} hot txn/s; median run_batch "
@@ -451,8 +617,11 @@ def main_path(tk, label):
     print("main: host spans over 8 run_batch (s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in spans.items())
           + f", rest {total - sum(spans.values()):.4f}", flush=True)
+    # the replay runs each send in auto mode (Cluster._replay_into, as
+    # the reference does): the affine engine in torch ops, no kernel
     print(f"main: crash_switch_and_recover replayed {known}+{unknown} sends "
-          f"in {t_rec:.2f} s, registers identical", flush=True)
+          f"in {t_rec:.2f} s, registers identical; kernel launches "
+          f"{rec_launches}", flush=True)
     return launches, gpu, cpu, hi, p
 
 
@@ -507,6 +676,7 @@ def read_path(tk, gpu, cpu, hi):
           f"scans over {len(hot)} hot keys equal, {t_scan * 1e3:.3f} ms; "
           f"launches {launches}",
           flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------- phase 6 --
@@ -732,7 +902,7 @@ def cadd_path(tk):
     launches = dict(tk.LAUNCHES)
     out_auto, t_auto = run(auto)
     out_cpu, _ = run(cpu)
-    check(launches["switch_txn"] > 0, "cadd: switch_txn not launched")
+    check(launches["switch_txn_smem"] > 0, "cadd: switch_txn not launched")
     check(out_gpu == out_cpu, "cadd: per-txn results differ from CPU port")
     check(out_auto == out_cpu, "cadd: auto-mode results differ from CPU port")
     _same_clusters(gpu, cpu, "cadd")
@@ -782,12 +952,52 @@ def _profile(label, fn, top=None):
                                   for t, k, c in rows[:top]), flush=True)
 
 
-def profile_batch(gpu, p):
+def profile_batch(tk, gpu, hi, p):
+    """One run_batch under the profiler, then one hot dispatch alone (B =
+    256 all-hot YCSB-A txns, N = 4,096 <= SMEM_MAX_N): its device kernels
+    by name must be exactly one launch of the single-CTA kernel, with no
+    sort, no separate gather and no elementwise kernel around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.packets import build_packets
     from repro_torch.workloads import ycsb
     batch = ycsb.generate(np.random.default_rng(SEED + 2), B, p)
     gpu.run_batch(batch[:16])                 # warm the recovered engine
     _profile(f"one run_batch of {B} YCSB-A txns",
              lambda: gpu.run_batch(batch))
+
+    txns = [t for t in ycsb.generate(np.random.default_rng(SEED + 6), 4 * B,
+                                     p)
+            if all(hi.is_hot(k) for _, k, _ in t.ops)][:B]
+    pkts, meta = build_packets(txns, hi, gpu.switch_cfg)
+    n = pkts["op"].size
+    check(len(txns) == B and n <= tk.SMEM_MAX_N, "profile: bad hot group")
+    eng = gpu.switch
+    host = []
+    for _ in range(51):                       # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb = eng.execute_batch(pkts, meta, mode="pallas")
+        host.append(time.perf_counter() - t0)
+        pb.results_np()
+    host_us = statistics.median(host[1:]) * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.execute_batch(pkts, meta, mode="pallas")
+        torch.cuda.synchronize()
+    dev_us, rows = _device_by_name(prof)
+    kernels = [(t, k, c) for t, k, c in rows
+               if not k.startswith(("Memcpy", "Memset"))]
+    names = "; ".join(f"{k} x{c} {t:.2f} us" for t, k, c in kernels)
+    print(f"profile [one hot dispatch, B={len(txns)}, N={n}]: "
+          f"{sum(c for _, _, c in kernels)} device kernel launch(es): "
+          f"{names}; device total incl. copies {dev_us:.2f} us; host time of "
+          f"execute_batch alone, median of 50: {host_us:.1f} us", flush=True)
+    check(len(kernels) == 1 and kernels[0][2] == 1
+          and "switch_txn_smem_kernel" in kernels[0][1],
+          f"profile: a hot dispatch at N={n} ran {names or 'no kernel'}")
+    return kernels[0][0], host_us
 
 
 # --------------------------------------------------------------- phase 11 --
@@ -1105,18 +1315,23 @@ def main():
                      for n in libs)
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, concurrent: "
           f"{nvcc})", flush=True)
+    for n_, log in build.ptxas_log.items():
+        print(f"build: ptxas {n_}: " + "; ".join(_ptxas_lines(log)),
+              flush=True)
 
     kernels = kernel_checks(tk, lib, dev)
     kernels.append(scan_kernel_checks(tk, lib, dev))
     kernels.append(moe_route_checks(mr, libs["moe_route"], dev))
-    launches, gpu, cpu, hi, p = main_path(tk, smi)
-    read_path(tk, gpu, cpu, hi)
+    main_launches, gpu, cpu, hi, p = main_path(tk, smi)
+    launches = {"switch_txn": main_launches["switch_txn_smem"]}
+    launches["result_gather"] = read_path(tk, gpu, cpu, hi)["result_gather"]
     scan_launches, scan_gpu = scan_path(tk)
     launches["scan_prune"] = scan_launches["scan_prune"]
     sharded_path(tk, scan_gpu, p)
     async_read_path(tk, hi, p)
     cadd_path(tk)
-    profile_batch(gpu, p)
+    kernels[0]["dispatch_device_us"], kernels[0]["dispatch_host_us"] = \
+        profile_batch(tk, gpu, hi, p)
     launches["moe_route"] = serve_path(mr)
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]

@@ -211,21 +211,21 @@ def _staged_engine_impl(registers, op, stage, reg, val):
 
 _ENGINE_IMPLS = {"serial": _serial_engine_impl,
                  "staged": _staged_engine_impl,
-                 "affine": _affine_engine_impl,
-                 "pallas": ktx.switch_exec}
+                 "affine": _affine_engine_impl}
 
 
 def _run_fused(mode: str, registers, fused, Mp: int):
     """One dispatch: run the engine on the fused [N_PLANES, Bp, K] staging
-    tensor and gather the compacted device-only result rows."""
+    tensor and gather the compacted device-only result rows.  In
+    ``pallas`` mode the engine and the gather are one kernel launch on the
+    card (``ops.switch_exec_gather``)."""
     op, stage, reg, val = fused[0], fused[1], fused[2], fused[3]
     idx = fused[4].reshape(-1)[:Mp]
-    regs, res, ok = _ENGINE_IMPLS[mode](registers, op, stage, reg, val)
     if mode == "pallas":
-        compact = ktx.gather_results(res, idx)
-    else:
-        flat = res.reshape(-1)
-        compact = flat[idx.clamp(0, flat.shape[0] - 1).to(torch.int64)]
+        return ktx.switch_exec_gather(registers, op, stage, reg, val, idx)
+    regs, res, ok = _ENGINE_IMPLS[mode](registers, op, stage, reg, val)
+    flat = res.reshape(-1)
+    compact = flat[idx.clamp(0, flat.shape[0] - 1).to(torch.int64)]
     return regs, res, ok, compact
 
 

@@ -26,7 +26,7 @@ import torch
 KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # library name -> (source, {exported C function: argtypes}); every export
@@ -35,6 +35,9 @@ LIBRARIES = {
     "switch_txn": (KERNELS / "switch_txn" / "csrc" / "switch_txn.cu", {
         "switch_txn_launch": [_vp, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci,
                               _vp],
+        "switch_txn_smem_bytes": [_ci],
+        "switch_txn_smem_launch": [_vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci,
+                                   _vp, _vp, _vp, _vp, _ci, _vp],
         "result_gather_launch": [_vp, _ci, _vp, _vp, _ci, _vp],
         "scan_prune_scratch_len": [_ci],
         "scan_prune_launch": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
@@ -48,6 +51,7 @@ LIBRARIES = {
 _locks = {name: threading.Lock() for name in LIBRARIES}
 _libs = {}
 build_seconds = {}      # name -> wall time of this process's nvcc, if it built
+ptxas_log = {}          # name -> what ptxas -v printed, if this process built
 
 
 def _nvcc() -> str:
@@ -81,12 +85,21 @@ def library(name: str) -> ctypes.CDLL:
                                    f"{proc.stderr}")
             os.replace(tmp, so)
             build_seconds[name] = time.perf_counter() - t0
+            ptxas_log[name] = proc.stderr
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in exports.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _ci
         _libs[name] = lib
         return lib
+
+
+def raw_stream():
+    """torch's getter of a device's current CUDA stream as a plain int
+    (``cudaStream_t``), which builds no ``torch.cuda.Stream``: call it with
+    the device index.  Only CUDA builds of torch have it, so a launcher
+    looks it up when it first launches."""
+    return torch._C._cuda_getCurrentRawStream
 
 
 # ------------------------------------------------------- launch checks --

@@ -5,10 +5,30 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.switch_txn.switch_txn import (AGG_MAX_EMPTY,
-                                                       result_gather_call,
-                                                       scan_prune_call,
-                                                       switch_txn_call)
+from repro_torch.kernels.switch_txn.switch_txn import (
+    AGG_MAX_EMPTY, result_gather_call, scan_prune_call,
+    switch_txn_gather_call)
+
+
+def switch_exec_gather(registers, op, stage, reg, val, idx):
+    """One hot dispatch with its result compaction: on the card, one
+    launch of the single-CTA kernel for up to ``SMEM_MAX_N`` instructions.
+
+    registers: [S, R] int32 (contiguous, updated in place); op/stage/
+    reg/val: [B, K] int32; idx: [M] int32 flat row-major positions into
+    the result plane (clamped), or None.
+
+    Returns (registers [S, R], results [B, K], ok [B, K] bool, compact
+    [M] int32, or None without ``idx``)."""
+    S, R = registers.shape
+    B, K = op.shape
+    if not registers.is_contiguous():
+        raise ValueError("registers must be contiguous")
+    flat = lambda t: t.reshape(-1).contiguous()
+    _, res, ok, compact = switch_txn_gather_call(
+        registers.view(-1), flat(op), flat(stage), flat(reg), flat(val), R,
+        None if idx is None else flat(idx))
+    return registers, res.reshape(B, K), ok.reshape(B, K), compact
 
 
 def switch_exec(registers, op, stage, reg, val):
@@ -16,15 +36,7 @@ def switch_exec(registers, op, stage, reg, val):
     reg/val: [B, K] int32.
 
     Returns (registers [S, R], results [B, K], ok [B, K] bool)."""
-    S, R = registers.shape
-    B, K = op.shape
-    if not registers.is_contiguous():
-        raise ValueError("registers must be contiguous")
-    g = (stage * R + reg).reshape(-1).contiguous()
-    _, res, ok = switch_txn_call(registers.view(-1),
-                                 op.reshape(-1).contiguous(), g,
-                                 val.reshape(-1).contiguous())
-    return registers, res.reshape(B, K), ok.reshape(B, K).to(torch.bool)
+    return switch_exec_gather(registers, op, stage, reg, val, None)[:3]
 
 
 def gather_results(res, idx):

@@ -1,15 +1,20 @@
 """Launchers of the switch-transaction CUDA kernels, and their plain
 PyTorch versions.
 
-``switch_txn_call`` replaces ``repro/kernels/switch_txn/switch_txn.py::
-switch_txn_call`` (Pallas ``_kernel``), ``result_gather_call`` replaces
-``result_gather_call`` (``_gather_kernel``) and ``scan_prune_call``
+``switch_txn_gather_call`` replaces ``repro/kernels/switch_txn/
+switch_txn.py::switch_txn_call`` (Pallas ``_kernel``) and, on the hot
+dispatch, ``result_gather_call`` (``_gather_kernel``) in one launch of
+the single-CTA kernel for streams of up to ``SMEM_MAX_N`` instructions;
+longer streams take the large-N path, ``switch_txn_call`` (a stable
+``torch.sort`` and the multi-block walk) then ``result_gather_call``.
+``result_gather_call`` also serves the read tier, and ``scan_prune_call``
 replaces ``scan_prune_call`` (``_scan_prune_kernel``).  Each launcher
-takes int32, contiguous, 1-D tensors: a CUDA tensor always goes to the
+takes int32, contiguous, 1-D tensors: a CUDA tensor always goes to a
 hand-written kernel in ``csrc/switch_txn.cu`` (built at first use by
-``kernels/build.py``), a CPU tensor to the plain version below.  There is no
-fallback: a failed build or launch raises.  ``LAUNCHES`` counts kernel
-launches only.
+``kernels/build.py``), a CPU tensor to the plain versions below.  There
+is no fallback: a failed build or launch raises.  ``LAUNCHES`` counts
+kernel launches only: ``switch_txn_smem`` the single-CTA path,
+``switch_txn`` the large-N path.
 
 The register file is updated IN PLACE — the port's stand-in for JAX's
 buffer donation — so callers copy it where they need an old state.
@@ -20,11 +25,19 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import (check_int32, library, raise_on,
-                                      same_device)
+                                      raw_stream, same_device)
 
 NOP, READ, WRITE, ADD, CADD = 0, 1, 2, 3, 4
 
-LAUNCHES = {"switch_txn": 0, "result_gather": 0, "scan_prune": 0}
+# the longest stream the single-CTA kernel takes (kSmemMaxN in
+# csrc/switch_txn.cu, whose 160 KB working set fits a block's 227 KB)
+SMEM_MAX_N = 8192
+
+LAUNCHES = {"switch_txn_smem": 0, "switch_txn": 0, "result_gather": 0,
+            "scan_prune": 0}
+
+_I32 = torch.int32
+_SMEM = _GATHER = _STREAM = None    # resolved at the first CUDA launch
 
 AGG_MIN_EMPTY = 2147483647        # int32 identities the aggregate lanes
 AGG_MAX_EMPTY = -2147483648       # start from (empty-scan sentinels)
@@ -114,27 +127,124 @@ def result_gather_plain(src, idx):
     return src[idx.clamp(0, src.shape[0] - 1).long()]
 
 
+def _resolve():
+    """The C entry points and the raw stream getter, resolved once (after
+    the build), so later launches take no lock."""
+    global _SMEM, _GATHER, _STREAM
+    lib = library("switch_txn")
+    _SMEM, _GATHER = lib.switch_txn_smem_launch, lib.result_gather_launch
+    _STREAM = raw_stream()
+
+
 def result_gather_call(src, idx):
     """Result-compaction gather: src [N] int32, idx [M] int32.  Returns
-    out [M] int32 with out[i] = src[clamp(idx[i], 0, N-1)]."""
-    check_int32("src", src)
-    check_int32("idx", idx)
-    if src.shape[0] < 1:
-        raise ValueError("src is empty")
-    dev = same_device(src, idx)
-    if dev.type == "cpu":
+    out [M] int32 with out[i] = src[clamp(idx[i], 0, N-1)].
+
+    The read tier calls this once per read batch, so a CUDA call's host
+    path is short: a few attribute tests (the precise checks run only
+    when one fails), one output allocation and the C call on the raw
+    stream handle."""
+    try:
+        fast = (src.is_cuda and idx.is_cuda and src.dtype is _I32
+                and idx.dtype is _I32 and src.ndim == 1 and idx.ndim == 1
+                and src.is_contiguous() and idx.is_contiguous())
+    except AttributeError:
+        fast = False
+    if not fast:                        # the CPU, or an error to raise
+        check_int32("src", src)
+        check_int32("idx", idx)
+        if src.numel() < 1:
+            raise ValueError("src is empty")
+        same_device(src, idx)
         return result_gather_plain(src, idx)
-    m = idx.shape[0]
-    out = torch.empty(m, dtype=torch.int32, device=dev)
-    if m == 0:
-        return out
-    lib = library("switch_txn")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.result_gather_launch(src.data_ptr(), src.shape[0],
-                                   idx.data_ptr(), out.data_ptr(), m, stream)
-    raise_on(err, "result_gather")
-    LAUNCHES["result_gather"] += 1
+    n = src.numel()
+    if n < 1:
+        raise ValueError("src is empty")
+    d = src.get_device()
+    if d != idx.get_device():
+        same_device(src, idx)           # raises: two cards
+    out = torch.empty_like(idx)
+    m = idx.numel()
+    if m:
+        if _GATHER is None:
+            _resolve()
+        err = _GATHER(src.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m,
+                      _STREAM(d))
+        if err:
+            raise_on(err, "result_gather")
+        LAUNCHES["result_gather"] += 1
     return out
+
+
+# ------------------------------------------------------ switch_txn_smem --
+
+def switch_txn_gather_call(registers_flat, op, stage, reg, val, R: int,
+                           idx=None):
+    """One hot dispatch: apply the stream to ``registers_flat`` in place
+    and gather its compacted results.
+
+    registers_flat: [n_slots] int32; op/stage/reg/val: [N] int32, each
+    instruction on slot ``stage * R + reg`` (int32 wraparound) clamped
+    into the file; idx: [M] int32 or None.  Returns (registers_flat, res
+    [N] int32, ok [N] bool, compact [M] int32, or None without ``idx``),
+    compact[j] = res[clamp(idx[j], 0, N-1)].
+
+    A CUDA tensor with N <= ``SMEM_MAX_N`` is one launch of the
+    single-CTA kernel; a longer stream takes the large-N path,
+    ``switch_txn_call`` then ``result_gather_call``.  A CPU tensor takes
+    the plain versions."""
+    ts = (registers_flat, op, stage, reg, val)
+    if idx is not None:
+        ts += (idx,)
+    try:
+        n = op.shape[0]
+        fast = (all(t.dtype is _I32 and t.dim() == 1 and t.is_contiguous()
+                    for t in ts)
+                and stage.shape[0] == n and reg.shape[0] == n
+                and val.shape[0] == n)
+    except (AttributeError, IndexError):
+        fast = False
+    if not fast:                        # raise the precise error
+        check_int32("registers_flat", registers_flat)
+        check_int32("op", op)
+        n = op.shape[0]
+        for name, t in (("stage", stage), ("reg", reg), ("val", val)):
+            check_int32(name, t, n)
+        if idx is not None:
+            check_int32("idx", idx)
+    n_slots = registers_flat.shape[0]
+    if n_slots < 1:
+        raise ValueError("registers_flat is empty")
+    m = 0 if idx is None else idx.shape[0]
+    if n == 0 and m:
+        raise ValueError("src is empty")          # nothing to gather from
+    dev = same_device(*ts)
+    if n > SMEM_MAX_N:                            # the large-N path
+        _, res, ok = switch_txn_call(registers_flat, op,
+                                     _wrap32(stage.long() * R + reg), val)
+        compact = None if idx is None else result_gather_call(res, idx)
+        return registers_flat, res, ok.to(torch.bool), compact
+    if dev.type == "cpu":
+        _, res, ok = switch_txn_plain(registers_flat, op,
+                                      _wrap32(stage.long() * R + reg), val)
+        compact = None if idx is None else result_gather_plain(res, idx)
+        return registers_flat, res, ok.to(torch.bool), compact
+    res = torch.empty(n, dtype=_I32, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    compact = None if idx is None else torch.empty_like(idx)
+    if n == 0:
+        return registers_flat, res, ok, compact
+    if _SMEM is None:
+        _resolve()
+    err = _SMEM(registers_flat.data_ptr(), n_slots, int(R), op.data_ptr(),
+                stage.data_ptr(), reg.data_ptr(), val.data_ptr(), n,
+                res.data_ptr(), ok.data_ptr(),
+                idx.data_ptr() if m else None,
+                compact.data_ptr() if m else None, m, _STREAM(dev.index))
+    if err:
+        raise_on(err, "switch_txn_smem")
+    LAUNCHES["switch_txn_smem"] += 1
+    return registers_flat, res, ok, compact
 
 
 # ------------------------------------------------------------ scan_prune --

@@ -129,9 +129,33 @@ def test_launchers_reject_bad_inputs(bad, err):
     x = torch.arange(4, dtype=torch.int32)
     with pytest.raises(err):
         tk.switch_txn_call(regs, x, bad(x), x)
-    if err is TypeError:
+    with pytest.raises(err):
+        tk.switch_txn_gather_call(regs, x, bad(x), x, x, 2, x)
+    y = bad(x)
+    if err is TypeError or y.dim() != 1 or not y.is_contiguous():
+        with pytest.raises(err):                  # any length is an idx
+            tk.result_gather_call(regs, y)
         with pytest.raises(err):
-            tk.result_gather_call(regs, bad(x))
+            tk.switch_txn_gather_call(regs, x, x, x, x, 2, y)
+
+
+def test_gather_launchers_reject_empty_src_and_other_devices():
+    """result_gather's lean launcher keeps every check: a non-tensor, an
+    empty src, and tensors on an unsupported device or on two devices."""
+    x = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        tk.result_gather_call([1, 2], x)
+    with pytest.raises(ValueError):
+        tk.result_gather_call(torch.zeros(0, dtype=torch.int32), x)
+    meta = x.to("meta")
+    for src, idx in ((meta, meta), (x, meta), (meta, x)):
+        with pytest.raises(ValueError):
+            tk.result_gather_call(src, idx)
+    for regs, idx in ((meta, x), (x, meta)):
+        with pytest.raises(ValueError):
+            tk.switch_txn_gather_call(regs, x, x, x, x, 2, idx)
+    with pytest.raises(ValueError):
+        tk.switch_txn_gather_call(x[:0], x, x, x, x, 2, x)   # no registers
 
 
 # ------------------------------------------------------------ scan tier --
