@@ -13,10 +13,15 @@ Phases (each one exits non-zero on failure):
               stream at every tile, a ragged N on unaligned views and
               N = SMEM_MAX_N, the large-N path at 2 x SMEM_MAX_N; the
               lean result_gather launcher against torch.take in turns,
-              and with each piece of its host path removed; scan_prune
-              also over the whole 24 x 65536 register file at several
-              selectivities and caps; moe_route at the reference test
-              shapes, edge streams and the serving path's shapes;
+              and with each piece of its host path removed; the fused
+              scan_prune (gather, filter and compaction into one packed
+              buffer) over the whole 24 x 65536 register file at several
+              selectivities and caps, and at every tile boundary up to
+              and past SCAN_SMEM_MAX with stray slots; moe_route at the
+              reference test shapes, edge streams and the serving path's
+              shapes, and the one-launch routing plan (moe_plan) on the
+              same streams unsorted and its own edges, beside the
+              parent's route chain and torch.argsort;
 4. main     — P4DB's hot-transaction path at full width: an 8-node YCSB-A
               cluster on a 24 x 65536 switch register file in ``pallas``
               mode, 8 ``run_batch`` calls of 256 txns (every hot group one
@@ -36,14 +41,17 @@ Phases (each one exits non-zero on failure):
               ``pallas`` mode and in ``auto`` mode (the serial engine),
               against the CPU port;
 10. profile — one more YCSB batch under ``torch.profiler`` for the device's
-              busy share, and one hot dispatch alone, which must be one
-              device kernel, the single-CTA switch_txn;
+              busy share; one hot dispatch alone, which must be one
+              device kernel, the single-CTA switch_txn; one pruned
+              ``Cluster.scan``, which must be one device kernel (the
+              single-CTA scan_prune) and one device -> host copy;
 11. serve   — the model zoo's MoE serving path at full width:
               ``qwen3_moe_235b_a22b`` cut to 4 layers, bf16, random
               parameters from a seeded generator, 8 requests x 256
-              prompt tokens x 16 generated through ``generate``; checks
-              the kernel on every layer's real sorted-id stream, the
-              routing plan's invariants, and teacher-forced decode
+              prompt tokens x 16 generated through ``generate`` (one
+              moe_plan launch per MoE layer per forward); checks
+              moe_route and the routing plan on every layer's real
+              stream, the plan's invariants, and teacher-forced decode
               against the full forward with nothing dropped (bf16 on
               every (row, position) pair whose experts match in both
               runs, float32 on all); profiles prefill and one decode
@@ -178,9 +186,9 @@ def _ptxas_lines(log: str):
         if "Compiling entry function" in line:
             name = line.split("'")[1]
             for tag in ("switch_txn_smem_kernel", "switch_txn_kernel",
-                        "result_gather_kernel", "scan_count_kernel",
-                        "scan_offsets_kernel", "scan_write_kernel",
-                        "moe_route_kernel"):
+                        "result_gather_kernel", "scan_prune_kernel",
+                        "scan_block_agg_kernel", "scan_block_write_kernel",
+                        "moe_route_kernel", "moe_plan_kernel"):
                 if tag in name:
                     tail = name.split(tag)[1]
                     tmpl = (re.findall(r"Li(\d+)E", tail)
@@ -361,99 +369,188 @@ def kernel_checks(tk, lib, dev):
     ]
 
 
+def _scan_equal(got, want, what):
+    """The three outputs of a scan against its plain version, exactly;
+    returns the max abs error (0)."""
+    torch.cuda.synchronize()
+    err = 0
+    for name, a, b in zip(("vals", "pos", "agg"), got, want):
+        check(torch.equal(a, b), f"scan_prune {name} differ from plain "
+              f"({what})")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def _launched(tk, before):
+    return {k: v - before[k] for k, v in tk.LAUNCHES.items() if v - before[k]}
+
+
 def scan_kernel_checks(tk, lib, dev):
-    """scan_prune against its plain version over the whole register file
-    (every selectivity x cap exactly), then timed at the scan cluster's
-    shape (phase 6: 4096 hot keys, the 16-row first pass) and at full
-    width."""
-    from repro_torch.kernels.switch_txn import ops as tops
+    """The fused scan (gather + filter + compaction, one packed output)
+    against its plain version, exactly: over the whole register file
+    through a permuted index (the large path) at every selectivity and at
+    caps 0, 1, 16, the exact count and M; at M = 1, 400, 4,096, every
+    tile boundary, SCAN_SMEM_MAX and SCAN_SMEM_MAX + 1, with negative and
+    past-the-end slots, and on an unaligned index view; the
+    int32-wrapping sum.  Then timed at the scan cluster's shape (M =
+    4,096, the 16-row first pass), at the reads phase's M = 400 and at
+    full width."""
+    smax = tk.SCAN_SMEM_MAX
+    check(lib.scan_prune_scratch_len(smax) == 0
+          and lib.scan_prune_scratch_len(smax + 1) > 0,
+          f"SCAN_SMEM_MAX={smax} disagrees with the CUDA source")
     rng = np.random.default_rng(SEED + 10)
     n_slots = S * R
     regs = rng.integers(-2**30, 2**30, n_slots).astype(np.int32)
     regs[rng.choice(n_slots, 64, replace=False)] = np.repeat(
         [2**31 - 1, -2**31], 32)                          # int32 edges
-    regs_t = torch.tensor(regs, device=dev).reshape(S, R)
+    flat = torch.tensor(regs, device=dev)
     perm_t = torch.tensor(rng.permutation(n_slots).astype(np.int32),
                           device=dev)
-    src = tops.gather_results(regs_t, perm_t)             # [1,572,864]
+    src = tk.result_gather_plain(flat, perm_t)            # [1,572,864]
     q = np.sort(regs)
     frac = lambda f: (int(q[0]), int(q[max(0, int(f * n_slots) - 1)]))
     ranges = {"lo>hi": (5, -5), "between values": (2**30, 2**31 - 2),
               "1%": frac(0.01), "5%": frac(0.05), "25%": frac(0.25),
               "all": (-2**31, 2**31 - 1)}
+    large = {"scan_prune": 1, "scan_prune_large": 1}
     err, lines = 0, []
     for name, (lo, hi) in ranges.items():
         count = int(((src >= lo) & (src <= hi)).sum())
-        for cap in sorted({16, count, n_slots}):
-            got = tk.scan_prune_call(src, lo, hi, cap)
-            want = tk.scan_prune_plain(src, lo, hi, cap)
-            torch.cuda.synchronize()
-            for a, b in zip(got, want):
-                check(torch.equal(a, b), f"scan_prune differs from plain "
-                      f"({name}, cap {cap})")
-                if a.numel():
-                    err = max(err, int((a.long() - b.long()).abs().max()))
+        for cap in sorted({0, 1, 16, count, n_slots}):
+            before = dict(tk.LAUNCHES)
+            got = tk.scan_prune_gather_call(flat, perm_t, lo, hi, cap)
+            check(_launched(tk, before) == large, f"full width {name} cap "
+                  f"{cap} took {_launched(tk, before)}")
+            err = max(err, _scan_equal(got, tk.scan_prune_gather_plain(
+                flat, perm_t, lo, hi, cap), f"full width {name}, cap {cap}"))
             check(int(got[2][0]) == count, f"scan_prune count ({name})")
+        err = max(err, _scan_equal(tk.scan_prune_call(src, lo, hi, 16),
+                                   tk.scan_prune_plain(src, lo, hi, 16),
+                                   f"full width {name} without idx"))
         lines.append(f"{name} {count}")
-    wrapped = int(tk.scan_prune_call(src, -2**31, 2**31 - 1, 1)[2][1])
+    wrapped = int(tk.scan_prune_gather_call(flat, perm_t, -2**31,
+                                            2**31 - 1, 1)[2][1])
     exact = int(src.long().sum())
     check(wrapped == ((exact + 2**31) % 2**32) - 2**31,
           "scan_prune sum does not wrap like int32")
 
-    def timings(stream, lo, hi, cap, inner):
-        m = stream.shape[0]
-        ms = time_cuda(lambda: tk.scan_prune_call(stream, lo, hi, cap),
-                       inner=inner, reps=11)
-        plain = time_cuda(lambda: tk.scan_prune_plain(stream, lo, hi, cap),
-                          inner=max(inner // 10, 2), reps=5)
-        vals, idx, agg = (torch.zeros(cap, dtype=torch.int32, device=dev),
-                          torch.full((cap,), -1, dtype=torch.int32,
-                                     device=dev),
-                          torch.zeros(4, dtype=torch.int32, device=dev))
-        n_scratch = lib.scan_prune_scratch_len(m)
-        scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
-        stream_h = torch.cuda.current_stream(dev).cuda_stream
-        check(lib.scan_prune_launch(
-            stream.data_ptr(), m, lo, hi, cap, vals.data_ptr(),
-            idx.data_ptr(), agg.data_ptr(), scratch.data_ptr(),
-            n_scratch - 1, stream_h) != 0,
-            "scan_prune_launch accepted a scratch buffer one short")
-        bare = time_cuda(lambda: lib.scan_prune_launch(
-            stream.data_ptr(), m, lo, hi, cap, vals.data_ptr(),
-            idx.data_ptr(), agg.data_ptr(), scratch.data_ptr(), n_scratch,
-            stream_h), inner=inner, reps=11)
-        # the stream read once, cap (value, position) rows and 4
-        # aggregates written; two compares per element
-        b, by = bound_ms(4 * m + 8 * cap + 16, 2 * m)
-        return ms, plain, bare, b, by
+    # every tile boundary with stray slots: negative ones clamp to 0,
+    # past-the-end ones to n_slots - 1
+    sizes = (1, 400, 512, 513, 2048, 2049, 4096, 4097, smax, smax + 1)
+    for m in sizes:
+        idx = rng.integers(0, n_slots, m + 1).astype(np.int32)
+        stray = rng.choice(m, min(m, 9), replace=False)
+        idx[stray] = np.resize([-1, -7, -2**31, n_slots, n_slots + 3,
+                                2**31 - 1], len(stray))
+        views = [(torch.tensor(idx[:m], device=dev), 0)]
+        if m == 4096:                   # 4 bytes off 16: no vector loads
+            views.append((torch.tensor(idx, device=dev)[1:], 1))
+        for ix, off in views:
+            g = tk.result_gather_plain(flat, ix)
+            sq = np.sort(g.cpu().numpy())
+            lo, hi = int(sq[0]), int(sq[max(0, int(0.05 * m) - 1)])
+            count = int(((g >= lo) & (g <= hi)).sum())
+            for cap in sorted({0, 16, count, m}):
+                before = dict(tk.LAUNCHES)
+                got = tk.scan_prune_gather_call(flat, ix, lo, hi, cap)
+                want = ({"scan_prune": 1} if m <= smax else large)
+                check(_launched(tk, before) == want, f"M={m} took "
+                      f"{_launched(tk, before)}, expected {want}")
+                err = max(err, _scan_equal(got, tk.scan_prune_gather_plain(
+                    flat, ix, lo, hi, cap), f"M={m} offset {off} cap {cap}"))
 
-    # the scan cluster's shape: 4096 gathered hot values, 5% selected,
-    # the 16-row first pass of Cluster.scan
-    small = src[:4096].contiguous()
-    sq = np.sort(small.cpu().numpy())
-    lo_s, hi_s = int(sq[0]), int(sq[int(0.05 * 4096) - 1])
-    ms, plain, bare, b, by = timings(small, lo_s, hi_s, 16, inner=200)
-    fw = timings(src, *ranges["5%"], 16, inner=50)
-    fw_all = timings(src, *ranges["all"], n_slots, inner=20)
-    print(f"kernels: scan_prune equal to plain over {n_slots} slots "
-          f"(matches: {', '.join(lines)}; caps 16 / exact / M); at M=4096 "
-          f"cap 16: {ms * 1e3:.2f} us/call (bare {bare * 1e3:.2f} us, plain "
-          f"{plain * 1e3:.2f} us, bound {b * 1e3:.4f} us); full width 5% "
-          f"cap 16: {fw[0] * 1e3:.2f} us (bare {fw[2] * 1e3:.2f} us, plain "
-          f"{fw[1] * 1e3:.2f} us, bound {fw[3] * 1e3:.3f} us); full width "
-          f"all, cap M: {fw_all[0] * 1e3:.2f} us (bare "
-          f"{fw_all[2] * 1e3:.2f} us, plain {fw_all[1] * 1e3:.2f} us, bound "
-          f"{fw_all[3] * 1e3:.3f} us)", flush=True)
-    full = lambda t, sel, cap: dict(selectivity=sel, cap=cap, ms=t[0],
-                                    plain_ms=t[1], kernel_ms=t[2],
-                                    bound_ms=t[3], bound_by=t[4])
+    stream_h = torch.cuda.current_stream(dev).cuda_stream
+
+    def timings(ix, lo, hi, cap, inner):
+        """Per call (the launcher), bare C launch, plain version and bound
+        of the fused scan through ix (None: over flat itself)."""
+        m = n_slots if ix is None else ix.shape[0]
+        out = torch.empty(2 * cap + 4, dtype=torch.int32, device=dev)
+        ip = None if ix is None else ix.data_ptr()
+        if ix is None:
+            call = lambda: tk.scan_prune_call(flat, lo, hi, cap)
+            plain = lambda: tk.scan_prune_plain(flat, lo, hi, cap)
+        else:
+            call = lambda: tk.scan_prune_gather_packed(flat, ix, lo, hi, cap)
+            plain = lambda: tk.scan_prune_gather_plain(flat, ix, lo, hi, cap)
+        if m <= smax:
+            bare = lambda: lib.scan_prune_launch(
+                flat.data_ptr(), n_slots, ip, m, lo, hi, cap, out.data_ptr(),
+                stream_h)
+        else:
+            n_scr = lib.scan_prune_scratch_len(m)
+            scratch = torch.empty(n_scr, dtype=torch.int32, device=dev)
+            check(lib.scan_prune_large_launch(
+                flat.data_ptr(), n_slots, ip, m, lo, hi, cap, out.data_ptr(),
+                scratch.data_ptr(), n_scr - 1, stream_h) != 0,
+                "scan_prune_large_launch accepted a scratch one short")
+            bare = lambda: lib.scan_prune_large_launch(
+                flat.data_ptr(), n_slots, ip, m, lo, hi, cap, out.data_ptr(),
+                scratch.data_ptr(), n_scr, stream_h)
+        ms = time_cuda(call, inner=inner, reps=11)
+        bare_ms = time_cuda(bare, inner=inner, reps=11)
+        device_us = _profile_steps(call)[0]     # the kernels, profiler
+        plain_ms = time_cuda(plain, inner=max(inner // 10, 2), reps=5)
+        # indices read once (when given), the gathered values read once,
+        # the packed output written once; two compares per position
+        b, by = bound_ms(4 * m * (1 if ix is None else 2)
+                         + 4 * (2 * cap + 4), 2 * m)
+        return dict(m=m, cap=cap, ms=ms, kernel_ms=bare_ms, plain_ms=plain_ms,
+                    bound_ms=b, bound_by=by, device_us=device_us)
+
+    def sel_range(ix, f):
+        g = np.sort(tk.result_gather_plain(flat, ix).cpu().numpy())
+        return int(g[0]), int(g[max(0, int(f * g.shape[0]) - 1)])
+
+    # the scan cluster's shape: 4,096 hot slots, 5% selected, the 16-row
+    # first pass of Cluster.scan; and the reads phase's 400 hot keys
+    ix4096 = perm_t[:4096].contiguous()
+    ix400 = perm_t[:400].contiguous()
+    main = timings(ix4096, *sel_range(ix4096, 0.05), 16, inner=200)
+    reads = timings(ix400, *sel_range(ix400, 0.05), 16, inner=200)
+    # the same 4,096 values as the parent timed them: pre-gathered, no
+    # idx; and gathered by result_gather_call then scanned (two launches)
+    src4096 = src[:4096].contiguous()
+    lo_m, hi_m = sel_range(ix4096, 0.05)
+    unfused = time_cuda(lambda: tk.scan_prune_call(src4096, lo_m, hi_m, 16),
+                        inner=200, reps=11)
+    two = time_cuda(lambda: tk.scan_prune_call(
+        tk.result_gather_call(flat, ix4096), lo_m, hi_m, 16), inner=200,
+        reps=11)
+    fw = timings(perm_t, *ranges["5%"], 16, inner=50)
+    fw_all = timings(perm_t, *ranges["all"], n_slots, inner=20)
+    fw_noidx = timings(None, *ranges["5%"], 16, inner=50)
+    us = lambda d: (f"{d['ms'] * 1e3:.2f} us/call (bare "
+                    f"{d['kernel_ms'] * 1e3:.2f} us, device "
+                    f"{d['device_us']:.2f} us, plain "
+                    f"{d['plain_ms'] * 1e3:.2f} us, bound "
+                    f"{d['bound_ms'] * 1e3:.4f} us)")
+    print(f"kernels: scan_prune (fused gather, one packed output) equal to "
+          f"plain over {n_slots} slots through a permutation (matches: "
+          f"{', '.join(lines)}; caps 0 / 1 / 16 / exact / M), and at M = "
+          f"{', '.join(map(str, sizes))} with stray slots (caps 0 / 16 / "
+          f"exact / M; M=4096 also 4 bytes off alignment); int32 sum wraps",
+          flush=True)
+    print(f"kernels: scan_prune at M=4096 cap 16 {us(main)}; M=400 cap 16 "
+          f"{us(reads)}; M=4096 pre-gathered, no idx, "
+          f"{unfused * 1e3:.2f} us/call; result_gather_call then "
+          f"scan_prune_call {two * 1e3:.2f} us/call; full width 5% cap 16 "
+          f"{us(fw)}; full width all, cap M {us(fw_all)}; full width 5% cap "
+          f"16 without idx {us(fw_noidx)}", flush=True)
     return dict(name="scan_prune", route="cuda",
                 source="src/repro_torch/kernels/switch_txn/csrc/switch_txn.cu",
                 replaces="src/repro/kernels/switch_txn/switch_txn.py:105",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=b, bound_by=by, library_ms=None, kernel_ms=bare,
-                shape=[4096, 16],
-                full_width=[full(fw, "5%", 16), full(fw_all, "all", n_slots)])
+                launches=0, max_abs_err=err, ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                kernel_ms=main["kernel_ms"], shape=[4096, 16],
+                reads_m400=reads, pregathered_ms=unfused,
+                gather_then_scan_ms=two,
+                full_width=[dict(fw, selectivity="5%"),
+                            dict(fw_all, selectivity="all"),
+                            dict(fw_noidx, selectivity="5%, no idx")])
 
 
 # ---------------------------------------------------------- phase 3, moe --
@@ -466,11 +563,24 @@ def _sorted_ids(rng, n, n_experts):
     return np.sort(rng.integers(0, n_experts, n)).astype(np.int32)
 
 
+def _plan_kernels(fn):
+    """Device kernel launches and their device us (by the profiler) of
+    one call of fn."""
+    dev_us, rows, _ = _profile_steps(fn)
+    return sum(c for _, k, c in rows
+               if not k.startswith(("Memcpy", "Memset"))), dev_us
+
+
 def moe_route_checks(mr, lib, dev):
     """moe_route against its plain version (exactly) on the reference
     test shapes, edge streams and the serving path's shapes (prefill:
     2,048 tokens x top-8 = 16,384 ids over 128 experts; decode: 8 x 8 =
-    64), then timed at both serving shapes."""
+    64); the routing plan (moe_plan) against its plain version on the
+    same streams unsorted, one expert, a 90% hot expert, everything
+    dropped, N = 1, PLAN_MAX_N and PLAN_MAX_N + 1; then both timed at
+    the serving shapes, beside the parent's route chain (argsort +
+    moe_route) and torch.argsort, with the profiler's device kernels per
+    plan."""
     rng = np.random.default_rng(SEED + 20)
     cases = {f"{n}x{e}": _sorted_ids(np.random.default_rng(n), n, e)
              for n, e in ((64, 4), (1000, 7), (4096, 128), (513, 1))}
@@ -496,43 +606,167 @@ def moe_route_checks(mr, lib, dev):
                             ).shape == (0,) and mr.LAUNCHES == before,
           "moe_route launched on an empty stream")
 
+    # the routing plan: every stream above, unsorted, and the plan's own
+    # edges; (E, C, top_k) as route would call it
+    pmax = mr.PLAN_MAX_N
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    check(lib.moe_plan_launch(one.data_ptr(), pmax + 1, 128, 8, 8,
+                              one.data_ptr(), one.data_ptr(), one.data_ptr(),
+                              one.data_ptr(), 0) != 0
+          and lib.moe_plan_launch(one.data_ptr(), 1, mr.PLAN_MAX_E + 1, 8,
+                                  8, one.data_ptr(), one.data_ptr(),
+                                  one.data_ptr(), one.data_ptr(), 0) != 0,
+          "moe_plan_launch accepted a plan past PLAN_MAX_N or PLAN_MAX_E")
+    plans = {}
+    for name, ids in cases.items():
+        e = max(int(ids.max()) + 1, 1) if name not in ("prefill", "decode",
+                                                       "hot 90%") else 128
+        plans[name] = (rng.permutation(ids), e, 8, 8)
+    plans["one expert"] = (np.zeros(4096, np.int32), 1, 160, 8)
+    plans["all dropped, C=0"] = (rng.integers(0, 128, 4096), 128, 0, 8)
+    plans["C=8, E=4"] = (rng.integers(0, 4, 4096), 4, 8, 2)
+    plans["N=1"] = (np.array([77], np.int32), 128, 8, 8)
+    plans["N=PLAN_MAX_N"] = (rng.integers(0, 128, pmax), 128, 160, 8)
+    plans["N=PLAN_MAX_N+1"] = (rng.integers(0, 128, pmax + 1), 128, 160, 8)
+    plans["E=PLAN_MAX_E"] = (rng.integers(0, mr.PLAN_MAX_E, 3000),
+                             mr.PLAN_MAX_E, 2, 1)
+    for name, (ids, e, cap, k) in plans.items():
+        t = torch.tensor(np.asarray(ids, np.int32), device=dev)
+        before = dict(mr.LAUNCHES)
+        got = mr.route_plan_call(t, e, cap, k)
+        launched = {x: mr.LAUNCHES[x] - before[x] for x in before
+                    if mr.LAUNCHES[x] != before[x]}
+        want = mr.route_plan_plain(t, e, cap, k)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("order", "slot", "admit", "tok"), got, want):
+            check(a.dtype == b.dtype and torch.equal(a, b),
+                  f"moe_plan {what} differs from plain ({name})")
+            if what != "admit":
+                err = max(err, int((a.long() - b.long()).abs().max()))
+        expect = ({"moe_route": 1} if t.numel() > pmax else {"moe_plan": 1})
+        check(launched == expect, f"route plan {name} launched {launched}, "
+              f"expected {expect}")
+    print("kernels: moe_plan equal to plain (order, slot, admit, tok) on "
+          + ", ".join(f"{k} (N={len(v[0])}, E={v[1]}, C={v[2]})"
+                      for k, v in plans.items()), flush=True)
+
     stream_h = torch.cuda.current_stream(dev).cuda_stream
     timed = {}
-    for name in ("prefill", "decode"):
-        t = torch.tensor(cases[name], device=dev)
+    for name, cap in (("prefill", 160), ("decode", 8)):
+        t = torch.tensor(plans[name][0], device=dev)       # unsorted
+        s_ = torch.sort(t).values
         n = t.shape[0]
         out = torch.empty_like(t)
-        ms = time_cuda(lambda: mr.moe_route_call(t), inner=200, reps=11)
-        bare = time_cuda(lambda: lib.moe_route_launch(
-            t.data_ptr(), n, out.data_ptr(), stream_h), inner=200, reps=11)
-        plain = time_cuda(lambda: mr.moe_route_plain(t), inner=200, reps=11)
+        buf = torch.empty((3, n), dtype=torch.int32, device=dev)
+        adm = torch.empty(n, dtype=torch.bool, device=dev)
+        r_ms = time_cuda(lambda: mr.moe_route_call(s_), inner=200, reps=11)
+        r_bare = time_cuda(lambda: lib.moe_route_launch(
+            s_.data_ptr(), n, out.data_ptr(), stream_h), inner=200, reps=11)
+        r_plain = time_cuda(lambda: mr.moe_route_plain(s_), inner=200,
+                            reps=11)
         # the nearest single PyTorch call computes each run's first index;
         # the positions are one subtraction more
-        lib_ms = time_cuda(lambda: torch.searchsorted(t, t), inner=200,
-                           reps=11)
+        r_lib = time_cuda(lambda: torch.searchsorted(s_, s_), inner=200,
+                          reps=11)
+        plan = lambda: mr.route_plan_call(t, 128, cap, 8)
+        chain = lambda: mr._plan_from_sort(t, 128, cap, 8, mr.moe_route_call)
+        o_p, s_p, k_p = (buf[i].data_ptr() for i in range(3))
+        bare = lambda: lib.moe_plan_launch(t.data_ptr(), n, 128, cap, 8, o_p,
+                                           s_p, adm.data_ptr(), k_p, stream_h)
+        turns = [time_cuda(f, inner=200, reps=11)
+                 for f in (plan, chain, chain, plan)]
+        p_bare = time_cuda(bare, inner=200, reps=11)
+        p_plain = time_cuda(lambda: mr.route_plan_plain(t, 128, cap, 8),
+                            inner=50, reps=5)
+        p_lib = time_cuda(lambda: torch.argsort(t, stable=True), inner=200,
+                          reps=11)
+        # the launcher's host time in its output allocations
+        host = {"outputs": time_cuda(lambda: mr._plan_outputs(t, n),
+                                     inner=200, reps=11)}
         b, by = bound_ms(8 * n, n)          # ids read once, pos written once
-        timed[name] = dict(n=n, ms=ms, kernel_ms=bare, plain_ms=plain,
-                           searchsorted_ms=lib_ms, bound_ms=b, bound_by=by)
-    print("kernels: moe_route equal to plain on "
-          + ", ".join(f"{k} (N={len(v)})" for k, v in cases.items())
-          + "; N=0 not launched; " + "; ".join(
-              f"{k} N={d['n']}: {d['ms'] * 1e3:.2f} us/call (bare "
-              f"{d['kernel_ms'] * 1e3:.2f} us, plain {d['plain_ms'] * 1e3:.2f}"
-              f" us, searchsorted {d['searchsorted_ms'] * 1e3:.2f} us, bound "
-              f"{d['bound_ms'] * 1e3:.4f} us)" for k, d in timed.items()),
-          flush=True)
+        # ids read once; order, slot, tok (int32) and admit (bytes) written
+        pb, pby = bound_ms(4 * n + 13 * n, n)
+        timed[name] = dict(
+            n=n, ms=r_ms, kernel_ms=r_bare, plain_ms=r_plain,
+            searchsorted_ms=r_lib, bound_ms=b, bound_by=by,
+            plan=dict(ms=statistics.median([turns[0], turns[3]]),
+                      chain_ms=statistics.median([turns[1], turns[2]]),
+                      turns_ms=turns, kernel_ms=p_bare, plain_ms=p_plain,
+                      argsort_ms=p_lib, bound_ms=pb, bound_by=pby,
+                      host_ms=host,
+                      device_kernels=_plan_kernels(plan),
+                      chain_device_kernels=_plan_kernels(chain)))
+    print("kernels: moe_route " + "; ".join(
+        f"{k} N={d['n']}: {d['ms'] * 1e3:.2f} us/call (bare "
+        f"{d['kernel_ms'] * 1e3:.2f} us, plain {d['plain_ms'] * 1e3:.2f}"
+        f" us, searchsorted {d['searchsorted_ms'] * 1e3:.2f} us, bound "
+        f"{d['bound_ms'] * 1e3:.4f} us)" for k, d in timed.items()),
+        flush=True)
+    print("kernels: moe_plan " + "; ".join(
+        f"{k} N={d['n']}: {p['ms'] * 1e3:.2f} us/call, parent's chain "
+        f"(argsort + moe_route) {p['chain_ms'] * 1e3:.2f} us (turns plan, "
+        f"chain, chain, plan: " + " / ".join(f"{x * 1e3:.2f}"
+                                              for x in p["turns_ms"])
+        + f"); bare {p['kernel_ms'] * 1e3:.2f} us, plain "
+        f"{p['plain_ms'] * 1e3:.2f} us, torch.argsort(stable) "
+        f"{p['argsort_ms'] * 1e3:.2f} us, bound {p['bound_ms'] * 1e3:.4f} "
+        f"us; device kernels per plan {p['device_kernels'][0]} "
+        f"({p['device_kernels'][1]:.2f} us), chain "
+        f"{p['chain_device_kernels'][0]} "
+        f"({p['chain_device_kernels'][1]:.2f} us); host: " + ", ".join(
+            f"{a} {b_ * 1e3:.2f} us" for a, b_ in p["host_ms"].items())
+        for k, d in timed.items() for p in (d["plan"],)), flush=True)
+    # device kernels per whole route call (router product, softmax,
+    # top-k, the plan, the gate gather) at the serving shapes, with the
+    # plan kernel and with the PR 14 chain (argsort + moe_route) in its
+    # place
+    from repro_torch.configs.registry import get
+    from repro_torch.models import moe as moe_mod
+    cfg = get(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w = torch.randn(cfg.d_model, 128, generator=gen, device=dev)
+    chain_plan = lambda f, e, c, k: mr._plan_from_sort(f, e, c, k,
+                                                       mr.moe_route_call)
+    kernel_plan = moe_mod.route_plan
+    per_route = {}
+    for name, tokens in (("prefill", MOE_B * MOE_PROMPT), ("decode", MOE_B)):
+        x = torch.randn(tokens, cfg.d_model, generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        cap = moe_mod.capacity_for(tokens, cfg.moe)
+        call = lambda: moe_mod.route(x, w, cfg.moe, cap)
+        plan_route = _plan_kernels(call)
+        moe_mod.route_plan = chain_plan
+        try:
+            per_route[name] = dict(plan=plan_route,
+                                   chain=_plan_kernels(call))
+        finally:
+            moe_mod.route_plan = kernel_plan
+        timed[name]["plan"]["route_device_kernels"] = per_route[name]
+    print("kernels: device kernels (device us) per route call, with the "
+          "plan kernel / with the PR 14 chain: " + "; ".join(
+              f"{k} {v['plan'][0]} ({v['plan'][1]:.2f} us) / "
+              f"{v['chain'][0]} ({v['chain'][1]:.2f} us)"
+              for k, v in per_route.items()), flush=True)
+    pre = timed["prefill"]["plan"]
+    print(f"kernels: PLAN_MAX_N={pmax}: the plan at N={pmax} is "
+          f"{'no slower' if pre['ms'] <= pre['chain_ms'] else 'SLOWER'} "
+          f"than the parent's chain ({pre['ms'] * 1e3:.2f} against "
+          f"{pre['chain_ms'] * 1e3:.2f} us)", flush=True)
     p = timed["prefill"]
-    return dict(name="moe_route", route="cuda",
+    return dict(name="moe_route", route="cuda", kernel="moe_plan_kernel",
                 source="src/repro_torch/kernels/moe_route/csrc/moe_route.cu",
                 replaces="src/repro/kernels/moe_route/moe_route.py:24",
-                launches=0, max_abs_err=err, ms=p["ms"],
-                plain_ms=p["plain_ms"], bound_ms=p["bound_ms"],
-                bound_by=p["bound_by"], library_ms=None,
-                searchsorted_ms=p["searchsorted_ms"],
-                library="none: torch.searchsorted(ids, ids) gives each "
-                "run's first index only",
-                kernel_ms=p["kernel_ms"], shape=[p["n"]],
-                decode=timed["decode"])
+                launches=0, max_abs_err=err, ms=pre["ms"],
+                plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+                bound_by=pre["bound_by"], library_ms=pre["argsort_ms"],
+                library="torch.argsort(flat_ids, stable=True): the plan's "
+                "order alone", kernel_ms=pre["kernel_ms"], shape=[p["n"]],
+                chain_ms=pre["chain_ms"], decode_plan=timed["decode"]["plan"],
+                moe_route_kernel=dict(prefill={k: v for k, v in p.items()
+                                               if k != "plan"},
+                                      decode={k: v for k, v in
+                                              timed["decode"].items()
+                                              if k != "plan"}))
 
 
 # ---------------------------------------------------------------- phase 4 --
@@ -928,6 +1162,32 @@ def _device_by_name(prof):
     return total, sorted(rows, reverse=True)
 
 
+def _profile_steps(fn, tries=3):
+    """(device us, rows by name, attempts) of ``fn``'s second call under
+    the profiler, without the profiler's own step rows.  The first call
+    runs while the profiler warms up (``torch.profiler.schedule``'s
+    warmup step): profiled cold, a window lost its first device event in
+    PR 15's first chip run (a pruned scan's copy was seen, its kernel not).
+    A window in which the profiler saw no device activity at all (which a
+    call that runs a kernel or a copy cannot cause) is taken again, up to
+    ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        _, rows = _device_by_name(prof)
+        rows = [r for r in rows if not r[1].startswith("ProfilerStep")]
+        if rows:
+            break
+    return sum(t for t, _, _ in rows), rows, attempt
+
+
 def _profile(label, fn, top=None):
     """Wall time and device busy time of ``fn()`` under torch.profiler,
     with the ``top`` kernels by device time (all when None)."""
@@ -957,8 +1217,6 @@ def profile_batch(tk, gpu, hi, p):
     256 all-hot YCSB-A txns, N = 4,096 <= SMEM_MAX_N): its device kernels
     by name must be exactly one launch of the single-CTA kernel, with no
     sort, no separate gather and no elementwise kernel around it."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.packets import build_packets
     from repro_torch.workloads import ycsb
     batch = ycsb.generate(np.random.default_rng(SEED + 2), B, p)
@@ -981,22 +1239,75 @@ def profile_batch(tk, gpu, hi, p):
         host.append(time.perf_counter() - t0)
         pb.results_np()
     host_us = statistics.median(host[1:]) * 1e6
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.execute_batch(pkts, meta, mode="pallas")
-        torch.cuda.synchronize()
-    dev_us, rows = _device_by_name(prof)
+    dev_us, rows, attempts = _profile_steps(
+        lambda: eng.execute_batch(pkts, meta, mode="pallas"))
     kernels = [(t, k, c) for t, k, c in rows
                if not k.startswith(("Memcpy", "Memset"))]
     names = "; ".join(f"{k} x{c} {t:.2f} us" for t, k, c in kernels)
     print(f"profile [one hot dispatch, B={len(txns)}, N={n}]: "
           f"{sum(c for _, _, c in kernels)} device kernel launch(es): "
-          f"{names}; device total incl. copies {dev_us:.2f} us; host time of "
-          f"execute_batch alone, median of 50: {host_us:.1f} us", flush=True)
+          f"{names}; device total incl. copies {dev_us:.2f} us (profiler "
+          f"windows taken {attempts}); host time of execute_batch alone, "
+          f"median of 50: {host_us:.1f} us", flush=True)
     check(len(kernels) == 1 and kernels[0][2] == 1
           and "switch_txn_smem_kernel" in kernels[0][1],
           f"profile: a hot dispatch at N={n} ran {names or 'no kernel'}")
+    return kernels[0][0], host_us
+
+
+def profile_scan(tk, gpu, hi):
+    """One pruned ``Cluster.scan`` over the reads cluster's hot keys
+    (M = 400 slots, under SCAN_SMEM_MAX, a range of at most 16 matches so
+    there is no rescan) under the profiler: it must be exactly one device
+    kernel, the single-CTA scan, and one device -> host copy, with no
+    host -> device copy (the engine keeps the hot set's slot list on the
+    card from the scan before)."""
+    hot = sorted(hi.placement.slot)
+    uniq, counts = np.unique(gpu.read_batch(hot), return_counts=True)
+    best = (0, 0, 0)                  # the widest run of values <= 16 rows
+    for i in range(len(uniq)):
+        j = i
+        while j < len(uniq) and counts[i:j + 1].sum() <= 16:
+            j += 1
+        best = max(best, (int(counts[i:j].sum()), i, j - 1))
+    count, i, j = best
+    lo, hi_ = int(uniq[i]), int(uniq[j])
+    check(1 <= count <= 16, f"profile: scan range holds {count} values")
+    host = []
+    for _ in range(21):                       # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gpu.scan(lo, hi_)
+        host.append(time.perf_counter() - t0)
+    check(len(out) == count, "profile: scan returned the wrong rows")
+    host_us = statistics.median(host[1:]) * 1e6
+    _reset(tk)
+    puts = []                                 # host -> device copies
+    eng = gpu.switch
+    put = eng._put
+    eng._put = lambda x: puts.append(x.shape) or put(x)
+    try:
+        dev_us, rows, attempts = _profile_steps(lambda: gpu.scan(lo, hi_))
+    finally:
+        del eng._put
+    kernels = [(t, k, c) for t, k, c in rows
+               if not k.startswith(("Memcpy", "Memset"))]
+    d2h = sum(c for _, k, c in rows if "DtoH" in k)
+    h2d = sum(c for _, k, c in rows if "HtoD" in k)
+    other = [k for _, k, _ in rows if k.startswith(("Memcpy", "Memset"))
+             and "DtoH" not in k]
+    names = "; ".join(f"{k} x{c} {t:.2f} us" for t, k, c in rows)
+    print(f"profile [one pruned Cluster.scan, M={len(hot)}, {count} "
+          f"matches]: {names}; device total {dev_us:.2f} us; launches "
+          f"{dict(tk.LAUNCHES)} over two scans; engine host -> device "
+          f"copies {len(puts)}; profiler windows taken {attempts}; host "
+          f"time of Cluster.scan, median of 20: {host_us:.1f} us",
+          flush=True)
+    check(len(kernels) == 1 and kernels[0][2] == 1
+          and "scan_prune_kernel" in kernels[0][1] and d2h == 1
+          and h2d == 0 and not other and not puts,
+          f"profile: a pruned scan ran {names or 'nothing on the device'}, "
+          f"{len(puts)} host -> device copies")
     return kernels[0][0], host_us
 
 
@@ -1024,7 +1335,7 @@ def _plan_checks(plan, E, C, where):
 
 def serve_path(mr):
     """The full-width MoE serving path through ``generate``; returns the
-    moe_route launches of its counted run."""
+    moe_plan launches of its counted run."""
     import dataclasses
 
     from repro_torch.configs.registry import get
@@ -1054,12 +1365,15 @@ def serve_path(mr):
         0, cfg.vocab_size, (MOE_B, MOE_PROMPT))
 
     generate(cfg, model, {"tokens": prompts}, 2, "cuda")      # warm-up
-    mr.LAUNCHES["moe_route"] = 0
+    for k in mr.LAUNCHES:
+        mr.LAUNCHES[k] = 0
     out = generate(cfg, model, {"tokens": prompts}, MOE_GEN, "cuda")
-    launches = mr.LAUNCHES["moe_route"]
+    launches = mr.LAUNCHES["moe_plan"]
     peak = torch.cuda.max_memory_allocated()
-    check(launches == cfg.n_layers * MOE_GEN, f"serve: moe_route launched "
-          f"{launches} times, expected {cfg.n_layers} per forward")
+    check(launches == cfg.n_layers * MOE_GEN and mr.LAUNCHES["moe_route"]
+          == 0, f"serve: launches {mr.LAUNCHES}, expected one moe_plan per "
+          f"MoE layer per forward ({cfg.n_layers} per forward) and no "
+          "moe_route")
     toks = out.tokens
     check(toks.shape == (MOE_B, MOE_GEN) and bool(((toks >= 0) & (
         toks < cfg.vocab_size)).all()), "serve: bad tokens")
@@ -1070,7 +1384,7 @@ def serve_path(mr):
     print(f"serve: {MOE_B} requests x {MOE_PROMPT} prompt tokens x "
           f"{MOE_GEN} generated; prefill {out.prefill_seconds * 1e3:.3f} "
           f"ms, decode {decode_ms:.3f} ms/step = "
-          f"{decode_ms / MOE_B:.4f} ms/token/seq; moe_route launches "
+          f"{decode_ms / MOE_B:.4f} ms/token/seq; moe_plan launches "
           f"{launches} ({cfg.n_layers} per forward); peak memory "
           f"{peak / 1e9:.2f} GB", flush=True)
 
@@ -1101,11 +1415,18 @@ def serve_path(mr):
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"serve: moe_route differs from "
                   f"plain on layer {i}'s {phase} stream (N={ids.numel()})")
+            want = mr.route_plan_plain(plan["ids"].reshape(-1), E, cap,
+                                       cfg.moe.top_k)
+            got = [plan[k] for k in ("order", "slot", "admit", "tok")]
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"serve: the routing plan differs from plain on layer "
+                  f"{i}'s {phase} stream (N={ids.numel()})")
             drops[phase].append(_plan_checks(plan, E, cap,
                                              f"{phase} layer {i}"))
     caps = (capacity_for(MOE_B * MOE_PROMPT, cfg.moe),
             capacity_for(MOE_B, cfg.moe))
-    print(f"serve: (a) kernel equal to plain on the {len(captured)} real "
+    print(f"serve: (a) moe_route and the moe_plan routing plan equal to "
+          f"plain on the {len(captured)} real "
           f"streams (N={MOE_B * MOE_PROMPT * 8} prefill, {MOE_B * 8} decode)"
           f"; (b) plan invariants hold at capacity {caps[0]} / {caps[1]}; "
           f"entries dropped per layer: prefill {drops['prefill']}, decode "
@@ -1332,6 +1653,8 @@ def main():
     cadd_path(tk)
     kernels[0]["dispatch_device_us"], kernels[0]["dispatch_host_us"] = \
         profile_batch(tk, gpu, hi, p)
+    kernels[2]["scan_device_us"], kernels[2]["scan_host_us"] = \
+        profile_scan(tk, gpu, hi)
     launches["moe_route"] = serve_path(mr)
     for kd in kernels:
         kd["launches"] = launches[kd["name"]]

@@ -359,6 +359,7 @@ class SwitchEngine:
         self.next_gid = 0
         self.dispatch_count = 0
         self.read_dispatch_count = 0    # READ-only gathers (no GID, no WAL)
+        self._scan_idx = None           # (host slots, device copy): last scan
         # reusable host staging buffers (one fused H2D per dispatch); the
         # pool must stay deeper than the caller's async in-flight window
         self._stager = PacketStager(pool=stager_pool)
@@ -539,18 +540,30 @@ class SwitchEngine:
         a result-plane drain."""
         if (cap is None) == (k is None):
             raise ValueError("exactly one of cap/k")
-        idx = self._put(rp.flat_idx(self.cfg))
+        idx = self._scan_slots(rp.flat_idx(self.cfg))
 
         def job():
             if k is not None:
                 return ktx.scan_topk(self.registers, idx, lo, hi, k=k)
-            return ktx.scan_prune(self.registers, idx, lo, hi, cap=cap)
+            return ktx.scan_prune_packed(self.registers, idx, lo, hi, cap)
 
         self.read_dispatch_count += 1
         out, _ = self._submit(job, defer=False)
-        vals, pos, tail = out
-        return (vals.cpu().numpy(), pos.cpu().numpy(),
-                tail.cpu().numpy() if k is None else int(tail))
+        if k is not None:
+            vals, pos, count = out
+            return vals.cpu().numpy(), pos.cpu().numpy(), int(count)
+        # one device -> host copy of vals | pos | agg, split on the host
+        return ktx.unpack_scan(out.cpu().numpy(), cap)
+
+    def _scan_slots(self, flat: np.ndarray) -> torch.Tensor:
+        """The scan's slot list on the engine's device.  A scan over the
+        same slots as the previous one (a repeated range query over one
+        hot set, or the rescan after a truncated one) reuses that copy,
+        so it needs no host -> device copy; the list is read-only."""
+        last = self._scan_idx
+        if last is None or not np.array_equal(last[0], flat):
+            last = self._scan_idx = (flat, self._put(flat))
+        return last[1]
 
     def read_all(self) -> np.ndarray:
         """A host copy of the [S, R] register file."""

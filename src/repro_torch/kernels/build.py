@@ -40,11 +40,14 @@ LIBRARIES = {
                                    _vp, _vp, _vp, _vp, _ci, _vp],
         "result_gather_launch": [_vp, _ci, _vp, _vp, _ci, _vp],
         "scan_prune_scratch_len": [_ci],
-        "scan_prune_launch": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
-                              _ci, _vp],
+        "scan_prune_launch": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp],
+        "scan_prune_large_launch": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp,
+                                    _vp, _ci, _vp],
     }),
     "moe_route": (KERNELS / "moe_route" / "csrc" / "moe_route.cu", {
         "moe_route_launch": [_vp, _ci, _vp, _vp],
+        "moe_plan_launch": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
+                            _vp],
     }),
 }
 

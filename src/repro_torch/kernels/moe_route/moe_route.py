@@ -1,22 +1,44 @@
-"""Launcher of the moe_route CUDA kernel, and its plain PyTorch version.
+"""Launchers of the moe_route CUDA kernels, and their plain PyTorch
+versions.
 
 ``moe_route_call`` replaces ``repro/kernels/moe_route/moe_route.py::
 moe_route_call`` (Pallas ``_kernel``): for an ascending expert-id stream,
 each entry's position within its run of equal ids, i.e. the pre-increment
-read of its expert's admission counter in stream order.  A CUDA tensor
-always goes to the hand-written kernel in ``csrc/moe_route.cu`` (built at
-first use by ``kernels/build.py``), a CPU tensor to the plain version.
-There is no fallback: a failed build or launch raises.  ``LAUNCHES``
-counts kernel launches only.
+read of its expert's admission counter in stream order.  ``route_plan_call``
+computes the whole routing plan of ``repro/models/moe.py::route`` around
+that function — the stable expert sort, the positions and the admission
+— in one launch of the ``moe_plan`` kernel for up to ``PLAN_MAX_N`` ids
+over up to ``PLAN_MAX_E`` experts; larger plans sort with
+``torch.argsort`` and launch ``moe_route``.  A CUDA tensor always goes to
+a hand-written kernel in ``csrc/moe_route.cu`` (built at first use by
+``kernels/build.py``), a CPU tensor to the plain versions.  There is no
+fallback: a failed build or launch raises.  ``LAUNCHES`` counts kernel
+launches only.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import (check_int32, library, raise_on,
-                                      same_device)
+                                      raw_stream, same_device)
 
-LAUNCHES = {"moe_route": 0}
+# the largest plan one moe_plan launch takes (kPlanMaxN and kPlanMaxE in
+# csrc/moe_route.cu): Qwen3-MoE prefill's 2,048 tokens x top-8 ids, and
+# experts up to the 16 KB of offsets in shared memory
+PLAN_MAX_N = 16384
+PLAN_MAX_E = 4096
+
+LAUNCHES = {"moe_route": 0, "moe_plan": 0}
+
+_I32 = torch.int32
+_ROUTE = _PLAN = _STREAM = None     # resolved at the first CUDA launch
+
+
+def _resolve():
+    global _ROUTE, _PLAN, _STREAM
+    lib = library("moe_route")
+    _ROUTE, _PLAN = lib.moe_route_launch, lib.moe_plan_launch
+    _STREAM = raw_stream()
 
 
 def moe_route_plain(sorted_ids):
@@ -31,18 +53,96 @@ def moe_route_call(sorted_ids):
     """sorted_ids: [N] int32, ascending (an unsorted stream gives
     unspecified positions).  Returns [N] int32 positions within each run
     of equal ids, in stream order."""
-    check_int32("sorted_ids", sorted_ids)
-    dev = same_device(sorted_ids)
-    if dev.type == "cpu":
+    try:
+        fast = (sorted_ids.is_cuda and sorted_ids.dtype is _I32
+                and sorted_ids.ndim == 1 and sorted_ids.is_contiguous())
+    except AttributeError:
+        fast = False
+    if not fast:                        # the CPU, or an error to raise
+        check_int32("sorted_ids", sorted_ids)
+        same_device(sorted_ids)
         return moe_route_plain(sorted_ids)
     n = sorted_ids.shape[0]
-    pos = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return pos
-    lib = library("moe_route")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.moe_route_launch(sorted_ids.data_ptr(), n, pos.data_ptr(),
-                               stream)
-    raise_on(err, "moe_route")
-    LAUNCHES["moe_route"] += 1
+    pos = torch.empty_like(sorted_ids)
+    if n:
+        if _ROUTE is None:
+            _resolve()
+        err = _ROUTE(sorted_ids.data_ptr(), n, pos.data_ptr(),
+                     _STREAM(sorted_ids.get_device()))
+        if err:
+            raise_on(err, "moe_route")
+        LAUNCHES["moe_route"] += 1
     return pos
+
+
+def _plan_from_sort(flat_ids, n_experts, capacity, top_k, positions):
+    """The routing plan as ``repro/models/moe.py::route`` computes it: a
+    stable argsort, the positions of the sorted stream (``positions``),
+    then admission, slot and source token."""
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[order]
+    pos = positions(sorted_ids)
+    admit = pos < capacity
+    slot = torch.where(admit, sorted_ids * capacity + pos,
+                       n_experts * capacity)
+    return (order.to(torch.int32), slot, admit,
+            (order // top_k).to(torch.int32))
+
+
+def route_plan_plain(flat_ids, n_experts, capacity, top_k):
+    """Plain PyTorch version of the routing plan (``moe_route_plain`` for
+    the positions)."""
+    return _plan_from_sort(flat_ids, n_experts, capacity, top_k,
+                           moe_route_plain)
+
+
+def _plan_outputs(flat_ids, n: int):
+    """(order, slot, tok, admit) for an n-id plan: the rows of one [3, n]
+    int32 allocation and an [n] bool one.  (One allocation split four ways,
+    admit viewed as the bytes of its tail, took more host time on the H100
+    machine: the views cost more than the allocation they save.)"""
+    order, slot, tok = flat_ids.new_empty((3, n))
+    return order, slot, tok, torch.empty(n, dtype=torch.bool,
+                                         device=flat_ids.device)
+
+
+def route_plan_call(flat_ids, n_experts: int, capacity: int, top_k: int):
+    """flat_ids: [N] int32 expert ids in arrival order (token-major, top_k
+    per token).  Returns (order int32, slot int32, admit bool, tok int32),
+    each [N] in stable expert-sorted order: the arrival position, the
+    expert-buffer slot ``id * capacity + pos`` or ``n_experts * capacity``
+    when dropped, ``pos < capacity``, and ``order // top_k``.
+
+    On the card, N <= ``PLAN_MAX_N`` and n_experts <= ``PLAN_MAX_E`` is
+    one launch of ``moe_plan`` (ids outside [0, n_experts) give an
+    unspecified plan, never an access out of bounds); a larger plan takes
+    ``torch.argsort`` and ``moe_route_call``, chosen by size alone.  A
+    CPU tensor takes the plain versions."""
+    try:
+        fast = (flat_ids.is_cuda and flat_ids.dtype is _I32
+                and flat_ids.ndim == 1 and flat_ids.is_contiguous())
+    except AttributeError:
+        fast = False
+    E, C, k = int(n_experts), int(capacity), int(top_k)
+    if E < 1 or C < 0 or k < 1 or E * C >= 2 ** 31:
+        raise ValueError(f"bad plan sizes: n_experts={E}, capacity={C}, "
+                         f"top_k={k}")
+    if not fast:                        # the CPU, or an error to raise
+        check_int32("flat_ids", flat_ids)
+        same_device(flat_ids)
+    n = flat_ids.shape[0]
+    if n > PLAN_MAX_N or E > PLAN_MAX_E:
+        return _plan_from_sort(flat_ids, E, C, k, moe_route_call)
+    if not fast:
+        return route_plan_plain(flat_ids, E, C, k)
+    order, slot, tok, admit = _plan_outputs(flat_ids, n)
+    if n:
+        if _PLAN is None:
+            _resolve()
+        err = _PLAN(flat_ids.data_ptr(), n, E, C, k, order.data_ptr(),
+                    slot.data_ptr(), admit.data_ptr(), tok.data_ptr(),
+                    _STREAM(flat_ids.get_device()))
+        if err:
+            raise_on(err, "moe_plan")
+        LAUNCHES["moe_plan"] += 1
+    return order, slot, admit, tok

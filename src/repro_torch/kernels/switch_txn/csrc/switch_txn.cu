@@ -64,28 +64,47 @@
 // at the path's M: 1.3 us of device time; its Python launcher does the
 // least host work per call (see switch_txn.py).
 //
-// scan_prune: replaces switch_txn.py::_scan_prune_kernel (scan_prune_call).
-// The TPU kernel walks the value stream in order on one sequential grid,
-// appending each match to a cap-row scratch through a sacrificial slot and
-// carrying the aggregates in scratch memory.  On an H100 that order is a
-// prefix sum, so the compaction runs in three passes over one thread per
-// element: (1) each block counts its matches with __ballot_sync/__popc and
-// folds the aggregates into agg[4] with one atomic per block and lane
-// (the sum as uint32: addition modulo 2^32 is exact in any order, which is
-// JAX's int32 wraparound; min/max as signed int); (2) one block turns the
-// per-block counts into exclusive offsets; (3) each block whose offset is
-// still below cap recomputes its matches, ranks them by ballot + prefix
-// popcount and writes (value, position) where the global rank is < cap.
-// What bounds it: bytes — the stream is read once by pass 1 and again by
-// the blocks of pass 3 that still hold ranks below cap (none past the
-// cap-th match), and cap rows are written; the three launches dominate
-// below ~1M elements.
+// scan_prune: replaces switch_txn.py:105 (_scan_prune_kernel,
+// scan_prune_call) and, on the scan path, :61 (_gather_kernel): the value
+// stream v[j] = src[clamp(idx[j], 0, n_src - 1)] (src[j] without idx) is
+// filtered by lo <= v <= hi; the first cap matches in stream order and
+// (count, sum, min, max) over all matches go to one packed int32 buffer
+// out[2 cap + 4] = vals[cap] | pos[cap] | agg[4], which the kernel writes
+// whole (0 and -1 past the count, the identities when nothing matches),
+// so the launcher pre-fills nothing and a scan ships one buffer to the
+// host.  The TPU kernel walks the stream in order on one sequential grid,
+// appending each match through a sacrificial slot and carrying the
+// aggregates in scratch; on an H100 that order is a prefix sum.  What
+// bounds it: not bytes (the main path's M = 400 or 4,096 indices and
+// values are 3-32 KB, ns at 3.35 TB/s) but launches and round trips, so
+// for M <= kScanSmemMaxM (16,384, every scan on the main path) the scan is
+// ONE block: a blocked load of kIpt positions a thread with every index
+// and value load in flight at once (16-byte index loads where aligned),
+// a cub::BlockScan exclusive sum of the threads' match counts (each
+// match's rank in stream order), the writes of ranks < cap, and a warp-
+// shuffle block reduction of the aggregates (the sum as uint32: addition
+// modulo 2^32 is JAX's int32 wraparound; min/max signed).  No atomics, no
+// scratch, deterministic.  The tile is the smallest of 512, 2,048, 4,096
+// or 16,384 positions that holds M (128 x 4, 256 x 8, 512 x 8, 1024 x 16
+// threads x items).  A longer stream (the full-width register file,
+// 1,572,864) takes two launches over tiles of 4,096: scan_block_agg_kernel
+// writes each tile's (count, sum, min, max) to scratch;
+// scan_block_write_kernel has each block fold the counts of the tiles
+// before it into its offset and, while that offset is below cap, reload
+// its tile, rank its matches into shared memory and write those < cap as
+// one coalesced run; block 0 folds every tile into agg and writes the
+// pads.  Two passes rather than one with decoupled look-
+// back: the second pass rereads only the tiles that hold ranks below cap,
+// and no block waits on another.  ptxas -v on sm_90a, as chip_smoke.py
+// prints it: 32 / 38 / 64 / 64 registers for the 512 / 2,048 / 4,096 /
+// 16,384 tiles (the last spills 48 bytes), 34 and 48 for the two passes.
 
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 
 namespace {
 
@@ -93,8 +112,9 @@ constexpr int32_t kNop = 0, kRead = 1, kWrite = 2, kAdd = 3, kCadd = 4;
 constexpr int32_t kOther = 5;      // any other opcode: answers the register
 constexpr int kSmemMaxN = 8192;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
+constexpr int kScanSmemMaxM = 16384;   // the single-CTA scan's longest stream
+constexpr int kLargeT = 256, kLargeIpt = 16;   // the large-M path's tile
+constexpr int kLargeTile = kLargeT * kLargeIpt;
 constexpr unsigned kFull = 0xffffffffu;
 
 // int32 addition that wraps like JAX's int32 (signed overflow is undefined
@@ -351,110 +371,221 @@ __global__ void result_gather_kernel(const int32_t* __restrict__ src,
   out[i] = src[j];
 }
 
-__device__ __forceinline__ bool in_range(int32_t v, int32_t lo, int32_t hi) {
-  return v >= lo && v <= hi;                       // signed compares
-}
-
-// Pass 1: per-block match counts, and the aggregates over every match.
-__global__ void scan_count_kernel(const int32_t* __restrict__ src, int m,
-                                  int32_t lo, int32_t hi,
-                                  int32_t* __restrict__ block_count,
-                                  int32_t* __restrict__ agg) {
-  __shared__ int32_t s_cnt[kWarps], s_min[kWarps], s_max[kWarps];
-  __shared__ uint32_t s_sum[kWarps];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int32_t v = i < m ? src[i] : 0;
-  const bool hit = i < m && in_range(v, lo, hi);
-  const unsigned mask = __ballot_sync(kFull, hit);
-  const uint32_t sum = __reduce_add_sync(kFull, hit ? static_cast<uint32_t>(v)
-                                                    : 0u);
-  const int32_t mn = __reduce_min_sync(kFull, hit ? v : INT32_MAX);
-  const int32_t mx = __reduce_max_sync(kFull, hit ? v : INT32_MIN);
-  if (lane == 0) {
-    s_cnt[w] = __popc(mask);
-    s_sum[w] = sum;
-    s_min[w] = mn;
-    s_max[w] = mx;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int32_t cnt = 0, bmin = INT32_MAX, bmax = INT32_MIN;
-    uint32_t bsum = 0;
-    for (int k = 0; k < kWarps; ++k) {
-      cnt += s_cnt[k];
-      bsum += s_sum[k];
-      bmin = min(bmin, s_min[k]);
-      bmax = max(bmax, s_max[k]);
-    }
-    block_count[blockIdx.x] = cnt;
-    if (cnt > 0) {
-      atomicAdd(&agg[0], cnt);
-      atomicAdd(reinterpret_cast<unsigned int*>(&agg[1]), bsum);
-      atomicMin(&agg[2], bmin);
-      atomicMax(&agg[3], bmax);
-    }
-  }
-}
-
-// Pass 2: exclusive prefix sum of the n block counts, in place, by one
-// block of kScanThreads threads walking the counts in tiles.
-__global__ void scan_offsets_kernel(int32_t* __restrict__ counts, int n) {
-  __shared__ int32_t s_warp[kScanThreads / 32];
-  __shared__ int32_t s_carry;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  constexpr int n_warps = kScanThreads / 32;
-  if (threadIdx.x == 0) s_carry = 0;
-  __syncthreads();
-  for (int base = 0; base < n; base += kScanThreads) {
-    const int i = base + threadIdx.x;
-    const int32_t v = i < n ? counts[i] : 0;
-    int32_t x = v;                                  // inclusive, in the warp
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t y = __shfl_up_sync(kFull, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) s_warp[w] = x;
-    __syncthreads();
-    if (w == 0) {                                   // scan the warp totals
-      int32_t t = lane < n_warps ? s_warp[lane] : 0;
-      for (int d = 1; d < 32; d <<= 1) {
-        const int32_t y = __shfl_up_sync(kFull, t, d);
-        if (lane >= d) t += y;
+// The kIpt values at one thread's positions p0 .. p0 + kIpt - 1 of the
+// stream v[j] = src[clamp(idx[j], 0, n_src - 1)] (src[j] when idx is
+// null), each flagged in hit when j < m and lo <= v <= hi.  Every load is
+// issued before the first is used; the index (or value) run is read as
+// 16-byte loads when vec (its pointer 16-byte aligned) and the whole run
+// lies inside the stream.
+template <int kIpt>
+__device__ __forceinline__ void scan_load(
+    const int32_t* __restrict__ src, int n_src,
+    const int32_t* __restrict__ idx, int m, int p0, int vec, int32_t lo,
+    int32_t hi, int32_t (&v)[kIpt], bool (&hit)[kIpt]) {
+  const int32_t* stream = idx != nullptr ? idx : src;
+  int32_t k[kIpt];
+  bool done = false;
+  if constexpr (kIpt % 4 == 0) {
+    if (vec && p0 + kIpt <= m) {
+#pragma unroll
+      for (int i = 0; i < kIpt; i += 4) {
+        const int4 q = __ldg(reinterpret_cast<const int4*>(stream + p0 + i));
+        k[i] = q.x;
+        k[i + 1] = q.y;
+        k[i + 2] = q.z;
+        k[i + 3] = q.w;
       }
-      if (lane < n_warps) s_warp[lane] = t;
+      done = true;
     }
-    __syncthreads();
-    const int32_t carry = s_carry;
-    if (i < n) counts[i] = carry + (w > 0 ? s_warp[w - 1] : 0) + x - v;
-    __syncthreads();                                // every thread read carry
-    if (threadIdx.x == 0) s_carry = carry + s_warp[n_warps - 1];
-    __syncthreads();
+  }
+  if (!done) {
+#pragma unroll
+    for (int i = 0; i < kIpt; ++i)
+      k[i] = p0 + i < m ? __ldg(stream + p0 + i) : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < kIpt; ++i) {
+    if (idx != nullptr) {
+      const int32_t j = k[i] < 0 ? 0 : (k[i] > n_src - 1 ? n_src - 1 : k[i]);
+      v[i] = p0 + i < m ? __ldg(src + j) : 0;
+    } else {
+      v[i] = k[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kIpt; ++i)
+    hit[i] = p0 + i < m && v[i] >= lo && v[i] <= hi;   // signed compares
+}
+
+// (count, sum, min, max) of matches; the sum wraps modulo 2^32.
+struct ScanAgg {
+  int32_t cnt;
+  uint32_t sum;
+  int32_t mn, mx;
+};
+
+__device__ __forceinline__ ScanAgg scan_agg_empty() {
+  return ScanAgg{0, 0u, INT32_MAX, INT32_MIN};
+}
+
+__device__ __forceinline__ void scan_fold(ScanAgg& a, int32_t cnt,
+                                          uint32_t sum, int32_t mn,
+                                          int32_t mx) {
+  a.cnt += cnt;
+  a.sum += sum;
+  a.mn = min(a.mn, mn);
+  a.mx = max(a.mx, mx);
+}
+
+template <int kIpt>
+__device__ __forceinline__ ScanAgg thread_agg(const int32_t (&v)[kIpt],
+                                              const bool (&hit)[kIpt]) {
+  ScanAgg a = scan_agg_empty();
+#pragma unroll
+  for (int i = 0; i < kIpt; ++i)
+    if (hit[i]) scan_fold(a, 1, static_cast<uint32_t>(v[i]), v[i], v[i]);
+  return a;
+}
+
+// The block's total of every thread's aggregates, returned to every
+// thread: warp shuffles, then each thread folds the kT / 32 warp totals.
+// Every thread of the block must call it.
+template <int kT>
+__device__ __forceinline__ ScanAgg block_agg(ScanAgg a, ScanAgg* s_warp) {
+  a.cnt = __reduce_add_sync(kFull, a.cnt);
+  a.sum = __reduce_add_sync(kFull, a.sum);
+  a.mn = __reduce_min_sync(kFull, a.mn);
+  a.mx = __reduce_max_sync(kFull, a.mx);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = a;
+  __syncthreads();
+  ScanAgg t = s_warp[0];
+#pragma unroll
+  for (int w = 1; w < kT / 32; ++w)
+    scan_fold(t, s_warp[w].cnt, s_warp[w].sum, s_warp[w].mn, s_warp[w].mx);
+  return t;
+}
+
+// One thread's matches, in stream order from rank on: (value, position)
+// where the rank is below cap.
+template <int kIpt>
+__device__ __forceinline__ void scan_write(const int32_t (&v)[kIpt],
+                                           const bool (&hit)[kIpt], int rank,
+                                           int p0, int cap,
+                                           int32_t* __restrict__ out) {
+#pragma unroll
+  for (int i = 0; i < kIpt; ++i) {
+    if (hit[i]) {
+      if (rank < cap) {
+        out[rank] = v[i];
+        out[cap + rank] = p0 + i;
+      }
+      ++rank;
+    }
   }
 }
 
-// Pass 3: ordered writes of the first cap matches.
-__global__ void scan_write_kernel(const int32_t* __restrict__ src, int m,
-                                  int32_t lo, int32_t hi,
-                                  const int32_t* __restrict__ offset, int cap,
-                                  int32_t* __restrict__ vals,
-                                  int32_t* __restrict__ idx) {
-  __shared__ int32_t s_warp[kWarps];
-  const int32_t base = offset[blockIdx.x];
-  if (base >= cap) return;                         // uniform per block
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int32_t v = i < m ? src[i] : 0;
-  const bool hit = i < m && in_range(v, lo, hi);
-  const unsigned mask = __ballot_sync(kFull, hit);
-  if (lane == 0) s_warp[w] = __popc(mask);
+// The pads past the match count (value 0, position -1) and agg, given
+// the aggregates over every match; thread tid of n_threads.
+__device__ __forceinline__ void scan_finish(const ScanAgg& t, int cap,
+                                            int32_t* __restrict__ out,
+                                            int tid, int n_threads) {
+  for (int r = t.cnt + tid; r < cap; r += n_threads) {
+    out[r] = 0;
+    out[cap + r] = -1;
+  }
+  if (tid == 0) {
+    out[2 * cap] = t.cnt;
+    out[2 * cap + 1] = static_cast<int32_t>(t.sum);
+    out[2 * cap + 2] = t.mn;
+    out[2 * cap + 3] = t.mx;
+  }
+}
+
+// The single-CTA scan of m <= kT * kIpt positions.
+template <int kT, int kIpt>
+__global__ void __launch_bounds__(kT) scan_prune_kernel(
+    const int32_t* __restrict__ src, int n_src,
+    const int32_t* __restrict__ idx, int m, int32_t lo, int32_t hi, int cap,
+    int vec, int32_t* __restrict__ out) {
+  using BlockScan = cub::BlockScan<int, kT>;
+  __shared__ typename BlockScan::TempStorage scan_tmp;
+  __shared__ ScanAgg s_warp[kT / 32];
+  int32_t v[kIpt];
+  bool hit[kIpt];
+  const int p0 = threadIdx.x * kIpt;              // blocked: stream order
+  scan_load<kIpt>(src, n_src, idx, m, p0, vec, lo, hi, v, hit);
+  const ScanAgg a = thread_agg<kIpt>(v, hit);
+  int rank;
+  BlockScan(scan_tmp).ExclusiveSum(a.cnt, rank);
+  scan_write<kIpt>(v, hit, rank, p0, cap, out);
+  scan_finish(block_agg<kT>(a, s_warp), cap, out, threadIdx.x, kT);
+}
+
+// Large-M pass 1: each tile's (count, sum, min, max) to scratch[4 b ..].
+__global__ void __launch_bounds__(kLargeT) scan_block_agg_kernel(
+    const int32_t* __restrict__ src, int n_src,
+    const int32_t* __restrict__ idx, int m, int32_t lo, int32_t hi, int vec,
+    int32_t* __restrict__ scratch) {
+  __shared__ ScanAgg s_warp[kLargeT / 32];
+  int32_t v[kLargeIpt];
+  bool hit[kLargeIpt];
+  const int p0 = blockIdx.x * kLargeTile + threadIdx.x * kLargeIpt;
+  scan_load<kLargeIpt>(src, n_src, idx, m, p0, vec, lo, hi, v, hit);
+  const ScanAgg t = block_agg<kLargeT>(thread_agg<kLargeIpt>(v, hit), s_warp);
+  if (threadIdx.x == 0) {
+    int32_t* s = scratch + 4 * blockIdx.x;
+    s[0] = t.cnt;
+    s[1] = static_cast<int32_t>(t.sum);
+    s[2] = t.mn;
+    s[3] = t.mx;
+  }
+}
+
+// Large-M pass 2: block b's offset is the count of tiles 0 .. b - 1;
+// while it is below cap, the block reloads its tile, ranks its matches
+// into shared memory and writes those below cap as one contiguous run
+// (coalesced).  Block 0 folds all n_tiles tiles into agg and writes the
+// pads past the total count.
+__global__ void __launch_bounds__(kLargeT) scan_block_write_kernel(
+    const int32_t* __restrict__ src, int n_src,
+    const int32_t* __restrict__ idx, int m, int32_t lo, int32_t hi, int cap,
+    int vec, const int32_t* __restrict__ scratch, int n_tiles,
+    int32_t* __restrict__ out) {
+  using BlockScan = cub::BlockScan<int, kLargeT>;
+  __shared__ typename BlockScan::TempStorage scan_tmp;
+  __shared__ ScanAgg s_warp[kLargeT / 32];
+  __shared__ int32_t s_val[kLargeTile], s_pos[kLargeTile];   // 32 KB
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int upto = b == 0 ? n_tiles : b;
+  ScanAgg a = scan_agg_empty();
+  for (int k = tid; k < upto; k += kLargeT) {
+    const int32_t* s = scratch + 4 * k;
+    scan_fold(a, s[0], static_cast<uint32_t>(s[1]), s[2], s[3]);
+  }
+  const ScanAgg before = block_agg<kLargeT>(a, s_warp);
+  if (b == 0) scan_finish(before, cap, out, tid, kLargeT);
+  const int offset = b == 0 ? 0 : before.cnt;
+  if (offset >= cap) return;                       // uniform per block
+  int32_t v[kLargeIpt];
+  bool hit[kLargeIpt];
+  const int p0 = b * kLargeTile + tid * kLargeIpt;
+  scan_load<kLargeIpt>(src, n_src, idx, m, p0, vec, lo, hi, v, hit);
+  const ScanAgg mine = thread_agg<kLargeIpt>(v, hit);
+  int rank, total;
+  BlockScan(scan_tmp).ExclusiveSum(mine.cnt, rank, total);
+#pragma unroll
+  for (int i = 0; i < kLargeIpt; ++i) {
+    if (hit[i]) {
+      s_val[rank] = v[i];
+      s_pos[rank] = p0 + i;
+      ++rank;
+    }
+  }
   __syncthreads();
-  int32_t before = 0;                              // matches in earlier warps
-  for (int k = 0; k < w; ++k) before += s_warp[k];
-  const int32_t rank = base + before + __popc(mask & ((1u << lane) - 1u));
-  if (hit && rank < cap) {
-    vals[rank] = v;
-    idx[rank] = i;
+  const int n_out = min(total, cap - offset);
+  for (int r = tid; r < n_out; r += kLargeT) {
+    out[offset + r] = s_val[r];
+    out[cap + offset + r] = s_pos[r];
   }
 }
 
@@ -548,35 +679,69 @@ int result_gather_launch(const void* src, int n_src, const void* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The int32 count of the scratch buffer scan_prune_launch needs for an
-// m-element stream: one per block of its passes.
-int scan_prune_scratch_len(int m) { return (m + kThreads - 1) / kThreads; }
+// The int32 count of the scratch buffer scan_prune_large_launch needs
+// for an m-position stream: four per tile of 4,096; 0 for m <= 16,384,
+// which the single-CTA scan_prune_launch takes.
+int scan_prune_scratch_len(int m) {
+  return m > kScanSmemMaxM ? 4 * ((m + kLargeTile - 1) / kLargeTile) : 0;
+}
 
-// Range scan of src[m] (m >= 1) for lo <= v <= hi: the first cap matches
-// in stream order go to vals[cap] / idx[cap], and agg[4] accumulates
-// (count, sum, min, max) over every match.  The caller pre-fills vals with
-// 0, idx with -1 and agg with (0, 0, INT32_MAX, INT32_MIN); scratch holds
-// scratch_len int32, at least scan_prune_scratch_len(m) (else
-// cudaErrorInvalidValue, nothing launched).  Returns the first non-zero
-// cudaGetLastError() of the three launches.
-int scan_prune_launch(const void* src, int m, int lo, int hi, int cap,
-                      void* vals, void* idx, void* agg, void* scratch,
-                      int scratch_len, void* stream) {
-  const int blocks = scan_prune_scratch_len(m);
-  if (scratch_len < blocks) return static_cast<int>(cudaErrorInvalidValue);
+// One pruned scan of m (0 <= m <= 16,384) positions in one launch of the
+// single-CTA kernel: v[j] = src[clamp(idx[j], 0, n_src - 1)], or src[j]
+// when idx is null; the first cap matches of lo <= v <= hi in stream
+// order and (count, sum, min, max) over all matches are written to
+// out[2 cap + 4] = vals[cap] | pos[cap] | agg[4], every word of it.
+// Returns cudaErrorInvalidValue without launching on bad sizes, else
+// cudaGetLastError() after the launch.
+int scan_prune_launch(const void* src, int n_src, const void* idx, int m,
+                      int lo, int hi, int cap, void* out, void* stream) {
+  if (m < 0 || m > kScanSmemMaxM || cap < 0 || (idx != nullptr && n_src < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec =
+      reinterpret_cast<uintptr_t>(idx != nullptr ? idx : src) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* in = static_cast<const int32_t*>(src);
-  int32_t* offs = static_cast<int32_t*>(scratch);
-  scan_count_kernel<<<blocks, kThreads, 0, s>>>(in, m, lo, hi, offs,
-                                               static_cast<int32_t*>(agg));
-  cudaError_t err = cudaGetLastError();
+  const int32_t* sp = static_cast<const int32_t*>(src);
+  const int32_t* ip = static_cast<const int32_t*>(idx);
+  int32_t* op = static_cast<int32_t*>(out);
+  if (m <= 512)
+    scan_prune_kernel<128, 4><<<1, 128, 0, s>>>(sp, n_src, ip, m, lo, hi,
+                                                cap, vec, op);
+  else if (m <= 2048)
+    scan_prune_kernel<256, 8><<<1, 256, 0, s>>>(sp, n_src, ip, m, lo, hi,
+                                                cap, vec, op);
+  else if (m <= 4096)
+    scan_prune_kernel<512, 8><<<1, 512, 0, s>>>(sp, n_src, ip, m, lo, hi,
+                                                cap, vec, op);
+  else
+    scan_prune_kernel<1024, 16><<<1, 1024, 0, s>>>(sp, n_src, ip, m, lo, hi,
+                                                   cap, vec, op);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same scan for m > 16,384 positions in two launches over tiles of
+// 4,096; scratch holds scratch_len int32, at least
+// scan_prune_scratch_len(m) (else cudaErrorInvalidValue, nothing
+// launched).  Returns the first non-zero cudaGetLastError() of the two.
+int scan_prune_large_launch(const void* src, int n_src, const void* idx,
+                            int m, int lo, int hi, int cap, void* out,
+                            void* scratch, int scratch_len, void* stream) {
+  if (m <= kScanSmemMaxM || cap < 0 || (idx != nullptr && n_src < 1) ||
+      scratch_len < scan_prune_scratch_len(m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec =
+      reinterpret_cast<uintptr_t>(idx != nullptr ? idx : src) % 16 == 0;
+  const int tiles = (m + kLargeTile - 1) / kLargeTile;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* sp = static_cast<const int32_t*>(src);
+  const int32_t* ip = static_cast<const int32_t*>(idx);
+  int32_t* sc = static_cast<int32_t*>(scratch);
+  scan_block_agg_kernel<<<tiles, kLargeT, 0, s>>>(sp, n_src, ip, m, lo, hi,
+                                                  vec, sc);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_offsets_kernel<<<1, kScanThreads, 0, s>>>(offs, blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_write_kernel<<<blocks, kThreads, 0, s>>>(
-      in, m, lo, hi, offs, cap, static_cast<int32_t*>(vals),
-      static_cast<int32_t*>(idx));
+  scan_block_write_kernel<<<tiles, kLargeT, 0, s>>>(
+      sp, n_src, ip, m, lo, hi, cap, vec, sc, tiles,
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,8 +6,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.switch_txn.switch_txn import (
-    AGG_MAX_EMPTY, result_gather_call, scan_prune_call,
-    switch_txn_gather_call)
+    AGG_MAX_EMPTY, result_gather_call, scan_prune_gather_call,
+    scan_prune_gather_packed, switch_txn_gather_call, unpack_scan)
 
 
 def switch_exec_gather(registers, op, stage, reg, val, idx):
@@ -48,18 +48,25 @@ def gather_results(res, idx):
     return result_gather_call(res.reshape(-1).contiguous(), idx.contiguous())
 
 
-def scan_prune(registers, idx, lo, hi, cap):
+def scan_prune_packed(registers, idx, lo, hi, cap):
     """Scan/filter query over the hot slots, pruned on device: gather the
-    ``idx`` slots out of the register file (the result-gather kernel),
-    filter by ``lo <= v <= hi`` and compact the first ``cap`` survivors
-    (the scan-prune kernel).  Only (vals, pos, agg) — ≤ cap rows — ever
-    need to cross device -> host.
+    ``idx`` slots out of the register file, filter by ``lo <= v <= hi``
+    and compact the first ``cap`` survivors, all in the scan-prune kernel
+    (one launch for up to ``SCAN_SMEM_MAX`` slots).  Only the packed
+    result — 2 cap + 4 int32 — ever needs to cross device -> host.
 
     registers: [S, R] int32; idx: [M] int32 flat slot positions in key
-    order.  Returns (vals [cap], pos [cap] positions into idx, agg [4]
-    = count/sum/min/max over all matches)."""
-    src = gather_results(registers, idx)
-    return scan_prune_call(src, lo, hi, cap)
+    order.  Returns one int32 tensor [2 cap + 4] = vals [cap] | pos [cap]
+    (positions into idx) | agg [4] (count/sum/min/max over all
+    matches)."""
+    return scan_prune_gather_packed(registers.reshape(-1), idx.contiguous(),
+                                    lo, hi, cap)
+
+
+def scan_prune(registers, idx, lo, hi, cap):
+    """``scan_prune_packed`` split into (vals [cap], pos [cap], agg [4])."""
+    return scan_prune_gather_call(registers.reshape(-1), idx.contiguous(),
+                                  lo, hi, cap)
 
 
 def scan_topk(registers, idx, lo, hi, k):

@@ -7,14 +7,18 @@ dispatch, ``result_gather_call`` (``_gather_kernel``) in one launch of
 the single-CTA kernel for streams of up to ``SMEM_MAX_N`` instructions;
 longer streams take the large-N path, ``switch_txn_call`` (a stable
 ``torch.sort`` and the multi-block walk) then ``result_gather_call``.
-``result_gather_call`` also serves the read tier, and ``scan_prune_call``
-replaces ``scan_prune_call`` (``_scan_prune_kernel``).  Each launcher
-takes int32, contiguous, 1-D tensors: a CUDA tensor always goes to a
-hand-written kernel in ``csrc/switch_txn.cu`` (built at first use by
+``result_gather_call`` also serves the read tier.  ``scan_prune_call``
+replaces ``scan_prune_call`` (``_scan_prune_kernel``), and
+``scan_prune_gather_call`` / ``scan_prune_gather_packed`` fuse the
+result gather into it: one launch per scan of up to ``SCAN_SMEM_MAX``
+positions, writing one packed buffer.  Each launcher takes int32,
+contiguous, 1-D tensors: a CUDA tensor always goes to a hand-written
+kernel in ``csrc/switch_txn.cu`` (built at first use by
 ``kernels/build.py``), a CPU tensor to the plain versions below.  There
 is no fallback: a failed build or launch raises.  ``LAUNCHES`` counts
 kernel launches only: ``switch_txn_smem`` the single-CTA path,
-``switch_txn`` the large-N path.
+``switch_txn`` the large-N path; ``scan_prune`` every scan,
+``scan_prune_large`` those of the two-launch path.
 
 The register file is updated IN PLACE — the port's stand-in for JAX's
 buffer donation — so callers copy it where they need an old state.
@@ -33,11 +37,16 @@ NOP, READ, WRITE, ADD, CADD = 0, 1, 2, 3, 4
 # csrc/switch_txn.cu, whose 160 KB working set fits a block's 227 KB)
 SMEM_MAX_N = 8192
 
+# the longest stream the single-CTA scan takes (kScanSmemMaxM in
+# csrc/switch_txn.cu); a longer one takes the two-launch path
+SCAN_SMEM_MAX = 16384
+
 LAUNCHES = {"switch_txn_smem": 0, "switch_txn": 0, "result_gather": 0,
-            "scan_prune": 0}
+            "scan_prune": 0, "scan_prune_large": 0}
 
 _I32 = torch.int32
-_SMEM = _GATHER = _STREAM = None    # resolved at the first CUDA launch
+# C entry points, resolved at the first CUDA launch
+_SMEM = _GATHER = _SCAN = _SCAN_LARGE = _SCAN_SCRATCH = _STREAM = None
 
 AGG_MIN_EMPTY = 2147483647        # int32 identities the aggregate lanes
 AGG_MAX_EMPTY = -2147483648       # start from (empty-scan sentinels)
@@ -130,9 +139,11 @@ def result_gather_plain(src, idx):
 def _resolve():
     """The C entry points and the raw stream getter, resolved once (after
     the build), so later launches take no lock."""
-    global _SMEM, _GATHER, _STREAM
+    global _SMEM, _GATHER, _SCAN, _SCAN_LARGE, _SCAN_SCRATCH, _STREAM
     lib = library("switch_txn")
     _SMEM, _GATHER = lib.switch_txn_smem_launch, lib.result_gather_launch
+    _SCAN, _SCAN_LARGE = lib.scan_prune_launch, lib.scan_prune_large_launch
+    _SCAN_SCRATCH = lib.scan_prune_scratch_len
     _STREAM = raw_stream()
 
 
@@ -280,35 +291,113 @@ def scan_prune_plain(src, lo, hi, cap):
     return vals, idx, agg
 
 
+def scan_prune_gather_plain(registers_flat, idx, lo, hi, cap):
+    """Plain version of the fused scan: ``scan_prune_plain`` over the
+    gathered stream ``result_gather_plain(registers_flat, idx)``."""
+    return scan_prune_plain(result_gather_plain(registers_flat, idx), lo,
+                            hi, cap)
+
+
+def unpack_scan(out, cap: int):
+    """(vals [cap], pos [cap], agg [4]): views of a packed scan buffer
+    ``out`` [2 cap + 4]; the same split of a host copy (numpy) works."""
+    return out[:cap], out[cap:2 * cap], out[2 * cap:]
+
+
+def _scan_large(src, idx, lo, hi, cap, m):
+    """The large-M path (M > ``SCAN_SMEM_MAX``): two launches on the
+    card, the plain version for CPU tensors."""
+    if src.device.type == "cpu":
+        return _packed_plain(src, idx, lo, hi, cap)
+    if _SCAN is None:
+        _resolve()
+    scratch = src.new_empty(_SCAN_SCRATCH(m))
+    out = src.new_empty(2 * cap + 4)
+    err = _SCAN_LARGE(src.data_ptr(), src.shape[0],
+                      None if idx is None else idx.data_ptr(), m, lo, hi,
+                      cap, out.data_ptr(), scratch.data_ptr(),
+                      scratch.shape[0], _STREAM(src.get_device()))
+    if err:
+        raise_on(err, "scan_prune")
+    LAUNCHES["scan_prune"] += 1
+    LAUNCHES["scan_prune_large"] += 1
+    return out
+
+
+def _packed_plain(src, idx, lo, hi, cap):
+    vals, pos, agg = (scan_prune_plain(src, lo, hi, cap) if idx is None else
+                      scan_prune_gather_plain(src, idx, lo, hi, cap))
+    return torch.cat([vals, pos, agg])
+
+
+def scan_prune_gather_packed(src, idx, lo, hi, cap):
+    """The pruned scan of ``src`` [n] int32, read through ``idx`` [M]
+    int32 (clamped into src from both sides) when it is given, else of src
+    itself.  Returns one int32 buffer [2 cap + 4] = vals [cap] | pos [cap]
+    | agg [4], with pos the matches' positions in the stream.  On the
+    card, one launch of the single-CTA kernel for M <= ``SCAN_SMEM_MAX``,
+    two beyond; the host path is short, as in ``result_gather_call``:
+    attribute tests (the precise checks run only when one fails), one
+    output allocation and one C call on the raw stream handle, and
+    nothing is pre-filled or copied to the card."""
+    try:
+        fast = (src.is_cuda and src.dtype is _I32 and src.ndim == 1
+                and src.is_contiguous())
+        if idx is not None:
+            fast = (fast and idx.is_cuda and idx.dtype is _I32
+                    and idx.ndim == 1 and idx.is_contiguous())
+    except AttributeError:
+        fast = False
+    if not fast:                        # the CPU, or an error to raise
+        check_int32("src", src)
+        if idx is not None:
+            check_int32("idx", idx)
+            same_device(src, idx)
+        else:
+            same_device(src)
+    lo, hi = _int32("lo", lo), _int32("hi", hi)
+    cap = int(cap)
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    n = src.shape[0]
+    if idx is None:
+        m = n
+    else:
+        m = idx.shape[0]
+        if n < 1:
+            raise ValueError("src is empty")
+    if m > SCAN_SMEM_MAX:
+        return _scan_large(src, idx, lo, hi, cap, m)
+    if not fast:
+        return _packed_plain(src, idx, lo, hi, cap)
+    d = src.get_device()
+    if idx is not None and idx.get_device() != d:
+        same_device(src, idx)           # raises: two cards
+    out = src.new_empty(2 * cap + 4)
+    if _SCAN is None:
+        _resolve()
+    err = _SCAN(src.data_ptr(), n, None if idx is None else idx.data_ptr(),
+                m, lo, hi, cap, out.data_ptr(), _STREAM(d))
+    if err:
+        raise_on(err, "scan_prune")
+    LAUNCHES["scan_prune"] += 1
+    return out
+
+
 def scan_prune_call(src, lo, hi, cap):
     """Switch-side scan pruning: src [M] int32 value stream, lo/hi int32
     scalars (inclusive range), cap the output capacity.  Returns vals
     [cap] int32 (0-padded), idx [cap] int32 stream positions (-1-padded)
     and agg [4] int32 = (count, sum, min, max) over ALL matches; ``count
-    > cap`` tells the caller the output was truncated."""
-    check_int32("src", src)
-    lo, hi = _int32("lo", lo), _int32("hi", hi)
-    cap = int(cap)
-    if cap < 0:
-        raise ValueError(f"cap must be >= 0, got {cap}")
-    dev = same_device(src)
-    if dev.type == "cpu":
-        return scan_prune_plain(src, lo, hi, cap)
-    vals = torch.zeros(cap, dtype=torch.int32, device=dev)
-    idx = torch.full((cap,), -1, dtype=torch.int32, device=dev)
-    agg = torch.tensor([0, 0, AGG_MIN_EMPTY, AGG_MAX_EMPTY],
-                       dtype=torch.int32, device=dev)
-    m = src.shape[0]
-    if m == 0:
-        return vals, idx, agg
-    lib = library("switch_txn")
-    n_scratch = lib.scan_prune_scratch_len(m)
-    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.scan_prune_launch(src.data_ptr(), m, lo, hi, cap,
-                                vals.data_ptr(), idx.data_ptr(),
-                                agg.data_ptr(), scratch.data_ptr(), n_scratch,
-                                stream)
-    raise_on(err, "scan_prune")
-    LAUNCHES["scan_prune"] += 1
-    return vals, idx, agg
+    > cap`` tells the caller the output was truncated.  The three are
+    views of one packed buffer (``scan_prune_gather_packed``)."""
+    return unpack_scan(scan_prune_gather_packed(src, None, lo, hi, cap),
+                       int(cap))
+
+
+def scan_prune_gather_call(registers_flat, idx, lo, hi, cap):
+    """The fused scan over the gathered slots, registers_flat [n_slots]
+    int32 read through idx [M] int32: ``scan_prune_gather_packed`` split
+    into (vals [cap], pos [cap] positions in idx, agg [4])."""
+    return unpack_scan(scan_prune_gather_packed(registers_flat, idx, lo, hi,
+                                                cap), int(cap))

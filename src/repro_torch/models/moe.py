@@ -3,9 +3,11 @@
 
 Token->expert admission is the paper's hot-tuple pattern: every token is a
 "transaction" incrementing a contended per-expert counter; admission is a
-constrained write (admit iff counter < capacity).  The serial-order
-counter reads come from ``kernels.moe_route``: on a CUDA tensor the
-hand-written ``moe_route`` kernel, on a CPU tensor its plain version.
+constrained write (admit iff counter < capacity).  The routing plan —
+the stable expert sort, the serial-order counter reads and the admission
+— comes from ``kernels.moe_route``: on a CUDA tensor one launch of the
+hand-written ``moe_plan`` kernel (``moe_route`` after a sort for plans
+past its limits), on a CPU tensor the plain version.
 
 Dispatch is sort-based (no dense one-hot [T, E] tensors).  The port runs
 on one device, so the reference's sharded arbitration
@@ -16,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.types import MoEConfig
-from repro_torch.kernels.moe_route.ops import route_positions
+from repro_torch.kernels.moe_route.ops import route_plan, route_positions
 
 
 def capacity_for(n_tokens: int, cfg: MoEConfig) -> int:
@@ -47,17 +49,15 @@ def route(x, router_w, moe: MoEConfig, capacity: int):
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
     flat_ids = ids.reshape(-1).to(torch.int32)                   # [T*k]
-    # stable sort by expert keeps arrival (packet) order within an expert
-    order = torch.argsort(flat_ids, stable=True)
-    sorted_ids = flat_ids[order]
-    pos = arbitrate_positions(sorted_ids)                        # switch counters
-    admit = pos < capacity                                       # constrained write
-    slot = torch.where(admit, sorted_ids * capacity + pos,
-                       moe.n_experts * capacity)
-    tok = order // moe.top_k                                     # source token row
-    return dict(order=order.to(torch.int32), slot=slot, admit=admit,
-                tok=tok.to(torch.int32), ids=ids.to(torch.int32),
-                gate=gate.reshape(-1)[order], probs=probs)
+    # a stable sort by expert keeps arrival (packet) order within an
+    # expert; each entry reads its expert's switch counter (pos), is
+    # admitted iff pos < capacity (the constrained write), and carries
+    # its buffer slot and source token row
+    order, slot, admit, tok = route_plan(flat_ids, moe.n_experts, capacity,
+                                         moe.top_k)
+    return dict(order=order, slot=slot, admit=admit, tok=tok,
+                ids=flat_ids.view(ids.shape),
+                gate=gate.reshape(-1).index_select(0, order), probs=probs)
 
 
 def moe_ffn(x, params, moe: MoEConfig, act_fn, capacity: int):

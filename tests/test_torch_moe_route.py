@@ -128,13 +128,23 @@ def test_route_positions_casts_and_compacts():
 
 
 def test_kernel_build_binds_every_export():
-    """Every library of kernels/build.py names an existing source, and
-    each bound function has as many ctypes argtypes as its C definition
-    has parameters (a miscount would only show on the card)."""
+    """Every library of kernels/build.py names an existing source, binds
+    exactly the C functions its ``extern "C"`` block defines (the fused
+    scan's ``scan_prune_launch`` / ``scan_prune_large_launch`` and the
+    routing plan's ``moe_plan_launch`` among them), and each bound
+    function has as many ctypes argtypes as its C definition has
+    parameters (a miscount would only show on the card)."""
     assert set(build.LIBRARIES) == {"switch_txn", "moe_route"}
+    bound = set()
     for name, (source, exports) in build.LIBRARIES.items():
         text = source.read_text()
+        defined = re.findall(r"^int (\w+)\(",
+                             text[text.index('extern "C" {'):], re.M)
+        assert sorted(defined) == sorted(exports), name
+        bound |= set(exports)
         for fn, argtypes in exports.items():
             m = re.search(r"^int " + fn + r"\(([^)]*)\)", text, re.M)
             assert m, f"{fn} is not defined in {source.name}"
             assert len(m.group(1).split(",")) == len(argtypes), fn
+    assert {"scan_prune_launch", "scan_prune_large_launch",
+            "scan_prune_scratch_len", "moe_plan_launch"} <= bound
