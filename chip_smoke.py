@@ -58,7 +58,22 @@ Phases (each one exits non-zero on failure):
               step;
 12. chain   — the ``qwen3-moe-smoke`` config in float32 and in bf16 with
               the same converted parameters on the card and through the
-              CPU port.
+              CPU port;
+13. tpcc    — TPC-C at Fig 14's widest point (32 warehouses, 8 nodes, 20%
+              remote, hot set 1,312 keys on the full-width switch), 8 x
+              256 txns in ``pallas`` mode: every txn is warm, its switch
+              sub-txn one B = 1 single-CTA launch; held against a CPU
+              port cluster, then crash recovery, and one warm dispatch
+              under the profiler (one device kernel);
+14. drift   — a YCSB hotspot shift with an ``EpochController`` migrating
+              the full-width switch, against a CPU port cluster: results,
+              registers, stores, stats, WAL heads and every tuple's
+              value, then crash recovery; seconds per ``migrate()``;
+15. openloop — ``serve_open_loop`` on fresh full-width YCSB-A clusters at
+              0.5x, 1x and 2x of phase 4's txn/s (Poisson, 4,096 txns,
+              batch 256, a clock that synchronizes the card): p50, p99,
+              p999, achieved rate, utilization and the knee; registers,
+              stores and next_gid against a CPU port cluster.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -775,6 +790,19 @@ def _wal_heads(c):
     return [n.wal[-1].hash if len(n.wal) else None for n in c.nodes]
 
 
+def _batch_traces(c):
+    return [tr for tr in c.tracer.traces if tr.label.startswith("batch:")]
+
+
+def _span_totals(traces):
+    """Summed seconds by span name over ``traces``."""
+    out = {}
+    for tr in traces:
+        for s_ in tr.spans:
+            out[s_.name] = out.get(s_.name, 0.0) + s_.duration
+    return out
+
+
 def _same_clusters(a, b, what):
     check(np.array_equal(a.switch.read_all(), b.switch.read_all()),
           f"{what}: registers differ from the CPU port")
@@ -836,11 +864,7 @@ def main_path(tk, label):
     check(before.tobytes() == gpu.switch.read_all().tobytes(),
           "main: registers after crash recovery differ")
 
-    spans = {}
-    for tr in gpu.tracer.traces:
-        if tr.label.startswith("batch:"):
-            for s_ in tr.spans:
-                spans[s_.name] = spans.get(s_.name, 0.0) + s_.duration
+    spans = _span_totals(_batch_traces(gpu))
     total = sum(times)
     groups = launches["switch_txn_smem"]
     print(f"main [{label}]: {len(txns)} txns ({gpu.stats['hot']} hot) in "
@@ -856,7 +880,7 @@ def main_path(tk, label):
     print(f"main: crash_switch_and_recover replayed {known}+{unknown} sends "
           f"in {t_rec:.2f} s, registers identical; kernel launches "
           f"{rec_launches}", flush=True)
-    return launches, gpu, cpu, hi, p
+    return launches, gpu, cpu, hi, p, len(txns) / total
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -1611,6 +1635,364 @@ def smoke_chain():
               ")", flush=True)
 
 
+# --------------------------------------------------------------- phase 13 --
+
+def _stores(c):
+    return [dict(n.store) for n in c.nodes]
+
+
+def tpcc_path(tk, label):
+    """TPC-C at Fig 14's widest point (32 warehouses, 8 nodes, 20% remote;
+    the setup of benchmarks/common.py:52-61): every txn is warm, a cold
+    part under 2PL on the nodes plus a switch sub-transaction sent as its
+    own B = 1 dispatch (``Cluster._run_warm``), some of them multipass.
+    8 x 256 txns in ``pallas`` mode on the card against a CPU port
+    cluster; then crash recovery and one warm dispatch under the
+    profiler, which must be one device kernel, the single-CTA
+    switch_txn."""
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import SwitchConfig, build_packets
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.db.txn import Txn
+    from repro_torch.obs.trace import Trace
+    from repro_torch.workloads import tpcc
+
+    cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K)
+    p = tpcc.TPCCParams(n_nodes=8, n_warehouses=32, dist_frac=0.2)
+    t0 = time.perf_counter()
+    sample = tpcc.generate(np.random.default_rng(SEED), 5000, p)
+    top_k = p.n_warehouses * (1 + 2 * tpcc.N_DISTRICTS + tpcc.HOT_ITEMS)
+    hi = build_hot_index(tpcc.traces(sample), top_k=top_k, switch=cfg)
+    txns = tpcc.generate(np.random.default_rng(SEED + 1), 8 * B, p)
+    gpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cuda")
+    cpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cpu")
+    for c in (gpu, cpu):
+        c.snapshot_offload()
+    print(f"tpcc: setup {time.perf_counter() - t0:.1f} s "
+          f"({len(hi.placement.slot)} hot keys, single-pass rate "
+          f"{hi.placement.stats['single_pass_rate']:.4f})", flush=True)
+
+    # the warm path sends its switch sub-txn untraced: trace it here
+    # (spans only; results, registers and WAL are untouched)
+    warm = Trace("warm")
+    run_hot = gpu._run_hot
+    gpu._run_hot = lambda txn, tr=None: run_hot(txn, tr=warm)
+    d0 = gpu.switch.dispatch_count
+    _reset(tk)
+    out_gpu, times = [], []
+    for b in range(8):
+        batch = txns[b * B:(b + 1) * B]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_gpu += gpu.run_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(tk.LAUNCHES)
+    del gpu._run_hot
+    dispatches = gpu.switch.dispatch_count - d0
+    batches = _batch_traces(gpu)
+    spans = _span_totals(batches)
+    groups = sum(s_.name == "dispatch" for tr in batches for s_ in tr.spans)
+
+    out_cpu = []
+    for b in range(8):
+        out_cpu += cpu.run_batch(copy.deepcopy(txns[b * B:(b + 1) * B]))
+    check(out_gpu == out_cpu, "tpcc: per-txn results differ from CPU port")
+    _same_clusters(gpu, cpu, "tpcc")
+    check(_stores(gpu) == _stores(cpu), "tpcc: node stores differ")
+    n_warm = gpu.stats["warm"]
+    check(n_warm > 0 and gpu.stats["multipass"] > 0,
+          f"tpcc: no warm or no multipass txn: {dict(gpu.stats)}")
+    check(launches["switch_txn_smem"] == dispatches == n_warm + groups,
+          f"tpcc: {launches} for {dispatches} dispatches ({n_warm} warm, "
+          f"{groups} hot groups)")
+    check(launches["switch_txn"] == 0 and launches["result_gather"] == 0,
+          f"tpcc: a dispatch left the single-CTA path: {launches}")
+
+    before = gpu.switch.read_all()
+    t0 = time.perf_counter()
+    gpu.crash_switch_and_recover()
+    t_rec = time.perf_counter() - t0
+    check(before.tobytes() == gpu.switch.read_all().tobytes(),
+          "tpcc: registers after crash recovery differ")
+
+    total = sum(times)
+    wspans = _span_totals([warm])
+    print(f"tpcc [{label}]: {len(txns)} txns ({n_warm} warm, "
+          f"{gpu.stats['multipass']} multipass, {gpu.stats['hot']} hot) in "
+          f"{total:.4f} s = {len(txns) / total:.1f} txn/s; median run_batch "
+          f"{statistics.median(times) * 1e3:.3f} ms; {dispatches} "
+          f"dispatches ({dispatches / 8:.2f} per run_batch, {groups} hot "
+          f"groups); launches {launches}; per-txn results, registers, "
+          f"next_gid, stats, stores and WAL heads equal to the CPU port",
+          flush=True)
+    print(f"tpcc [{label}]: host spans over 8 run_batch (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in spans.items())
+          + "; warm switch sub-txns: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in wspans.items())
+          + f"; rest (cold parts, 2PL, WAL) "
+          f"{total - sum(spans.values()) - sum(wspans.values()):.4f}",
+          flush=True)
+    print(f"tpcc [{label}]: crash_switch_and_recover {t_rec:.2f} s, "
+          "registers identical", flush=True)
+
+    # one warm txn's switch sub-txn as _run_warm sends it (a multipass
+    # one where there is one), B = 1, N = K
+    subs = [Txn(t.kind, [op for op in t.ops if hi.is_hot(op[1])], t.home)
+            for t in txns[:64]]
+    built = [build_packets([s_], hi, cfg) for s_ in subs]
+    pkts, meta = next((b for b in built if b[0]["is_multipass"][0]),
+                      built[0])
+    n, m = pkts["op"].size, len(meta["gather_idx"])
+    check(n == K, f"tpcc: a warm dispatch has N={n}")
+    eng = gpu.switch
+    host, host_drain = [], []
+    for _ in range(51):                       # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb = eng.execute_batch(pkts, meta, mode="pallas")
+        t1 = time.perf_counter()
+        pb.results_np()
+        host.append(t1 - t0)
+        host_drain.append(time.perf_counter() - t0)
+    host_us = statistics.median(host[1:]) * 1e6
+    drain_us = statistics.median(host_drain[1:]) * 1e6
+    dev_us, rows, attempts = _profile_steps(
+        lambda: eng.execute_batch(pkts, meta, mode="pallas"))
+    kernels = [(t, k, c) for t, k, c in rows
+               if not k.startswith(("Memcpy", "Memset"))]
+    names = "; ".join(f"{k} x{c} {t:.2f} us" for t, k, c in kernels)
+    live = pkts["op"][0] != 0
+    distinct = len(set(zip(pkts["stage"][0][live].tolist(),
+                           pkts["reg"][0][live].tolist())))
+    b_warm, _ = bound_ms(4 * 4 * n + 5 * n + 8 * m + 8 * distinct, n)
+    print(f"profile [one warm dispatch, B=1, N={n}, M={m}, multipass "
+          f"{bool(pkts['is_multipass'][0])}] [{label}]: "
+          f"{sum(c for _, _, c in kernels)} device kernel launch(es): "
+          f"{names}; device total incl. copies {dev_us:.2f} us (profiler "
+          f"windows taken {attempts}); host time of execute_batch alone, "
+          f"median of 50: {host_us:.1f} us, with results_np (the warm "
+          f"path's synchronous drain): {drain_us:.1f} us; bound "
+          f"{b_warm * 1e3:.5f} us ({distinct} distinct slots)", flush=True)
+    check(len(kernels) == 1 and kernels[0][2] == 1
+          and "switch_txn_smem_kernel" in kernels[0][1],
+          f"profile: a warm dispatch ran {names or 'no kernel'}")
+    return dict(tpcc_warm_launches=launches["switch_txn_smem"],
+                tpcc_warm_device_us=kernels[0][0],
+                tpcc_warm_host_us=host_us, tpcc_warm_drain_us=drain_us,
+                tpcc_warm_bound_ms=b_warm)
+
+
+# --------------------------------------------------------------- phase 14 --
+
+def _values(c, keys):
+    """Every key's committed value: its register where it is hot, else
+    its home node's store."""
+    from repro_torch.db.txn import node_of
+    regs = c.switch.read_all()
+    return [int(regs[c.hot_index.slot(k)[1:]]) if c.hot_index.is_hot(k)
+            else c.nodes[node_of(k)].store[k] for k in keys]
+
+
+def drift_path(tk, label):
+    """The adaptive controller on the card: a YCSB hotspot shift at its
+    defaults (8 nodes x 100,000 keys, 50 hot per node) on the full-width
+    switch, an EpochController as in tests/test_adaptive.py:134-145
+    (interval 512, top_k 400), phases (0, 0, 1, 1) x 512 txns through
+    run_batch(256), against a CPU port cluster."""
+    import itertools
+
+    from repro_torch.core.heat import HeatTracker
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import SwitchConfig
+    from repro_torch.db import migrate as mig
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import drift
+
+    cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K)
+    g = drift.YCSBHotspotShift()
+    hi = build_hot_index(drift.traces(g.sample_phase(
+        np.random.default_rng(SEED), 0, 800)), 400, cfg)
+    phases = [g.sample_phase(np.random.default_rng(SEED + 10 + i), ph, 512)
+              for i, ph in enumerate((0, 0, 1, 1))]
+    real_migrate, mig_s = mig.migrate, []
+
+    def timed_migrate(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_migrate(*a, **kw)
+        torch.cuda.synchronize()
+        mig_s.append(time.perf_counter() - t0)
+        return out
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        c = Cluster(8, cfg, hi, switch_mode="pallas", device=dev)
+        for k in g.hot_keys_at(0.0):
+            c.load(k, 5)
+        c.snapshot_offload()
+        mig.EpochController(c, HeatTracker(window=1024, decay=0.2),
+                            interval=512, top_k=400)
+        # migration tids come from one module-wide counter: each cluster
+        # starts it afresh, as it would in a process of its own
+        mig._MIG_TID = itertools.count(1 << 40)
+        if dev == "cuda":
+            mig.migrate = timed_migrate
+            _reset(tk)
+            d0 = c.switch.dispatch_count
+        out = []
+        try:
+            t0 = time.perf_counter()
+            for txns in phases:
+                for j in range(0, len(txns), B):
+                    part = txns[j:j + B]
+                    out += c.run_batch(part if dev == "cuda"
+                                       else copy.deepcopy(part))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            mig.migrate = real_migrate
+        if dev == "cuda":
+            launches = dict(tk.LAUNCHES)
+            dispatches = c.switch.dispatch_count - d0
+        runs[dev] = (c, out, wall)
+    (gpu, out_gpu, wall), (cpu, out_cpu, _) = runs["cuda"], runs["cpu"]
+    check(out_gpu == out_cpu, "drift: per-txn results differ from CPU port")
+    check(gpu.stats["migrations"] >= 1, f"drift: no migration: "
+          f"{dict(gpu.stats)}")
+    _same_clusters(gpu, cpu, "drift")
+    check(_stores(gpu) == _stores(cpu), "drift: node stores differ")
+    keys = sorted({k for txns in phases for t in txns for k in t.keys()})
+    check(dict(gpu.hot_index.placement.slot)
+          == dict(cpu.hot_index.placement.slot), "drift: placements differ")
+    check(_values(gpu, keys) == _values(cpu, keys),
+          "drift: a tuple's value differs after the last migration")
+    check(launches["switch_txn_smem"] == dispatches > 0
+          and launches["switch_txn"] == 0,
+          f"drift: {launches} for {dispatches} dispatches")
+    before = gpu.switch.read_all()
+    gpu.crash_switch_and_recover()
+    check(before.tobytes() == gpu.switch.read_all().tobytes(),
+          "drift: registers after crash recovery differ")
+    n = sum(len(t) for t in phases)
+    print(f"drift [{label}]: {n} txns ({gpu.stats['hot']} hot, "
+          f"{gpu.stats['warm']} warm) in {wall:.4f} s = {n / wall:.1f} "
+          f"txn/s; {gpu.stats['migrations']} migrations "
+          f"({gpu.stats['migrated_tuples']} tuples moved), migrate() "
+          + ", ".join(f"{s_:.4f}" for s_ in mig_s) + " s; launches "
+          f"{launches} for {dispatches} dispatches; results, registers, "
+          f"stores, stats, WAL heads and {len(keys)} tuple values equal to "
+          "the CPU port; registers identical after crash recovery",
+          flush=True)
+
+
+# --------------------------------------------------------------- phase 15 --
+
+def openloop_path(tk, label, rate):
+    """The open-loop serving front end: ``serve_open_loop`` on a fresh
+    full-width YCSB-A cluster (as phase 4 sets it up) per rate, 4,096
+    Poisson arrivals at 0.5x, 1x and 2x of phase 4's txn/s, batch 256.
+    Its clock synchronizes the card first, so a group's service time
+    holds its device work.  Registers, stores and next_gid must equal a
+    CPU port cluster that ran the same txns in arrival order."""
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import SwitchConfig
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.obs import find_knee, poisson_arrivals, serve_open_loop
+    from repro_torch.workloads import ycsb
+
+    n = 4096
+    cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K)
+    p = ycsb.YCSBParams(variant="A")
+    sample = ycsb.generate(np.random.default_rng(SEED), 4000, p)
+    hi = build_hot_index(ycsb.traces(sample), top_k=400, switch=cfg)
+    txns = ycsb.generate(np.random.default_rng(SEED + 1), n, p)
+    cpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cpu")
+    cpu.snapshot_offload()
+    for j in range(0, n, B):
+        cpu.run_batch(copy.deepcopy(txns[j:j + B]))
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    import gc
+    gc_pauses, gc_t0 = [], {}
+
+    def on_gc(phase, info):                   # Python's collector pauses
+        if phase == "start":
+            gc_t0["t"] = time.perf_counter()
+        elif "t" in gc_t0:
+            gc_pauses.append((info["generation"],
+                              time.perf_counter() - gc_t0.pop("t")))
+
+    rows, dispatches = [], 0
+    _reset(tk)
+    for mult in (0.5, 1.0, 2.0):
+        gpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cuda")
+        gpu.snapshot_offload()
+        d0 = gpu.switch.dispatch_count
+        arr = poisson_arrivals(mult * rate, n, seed=SEED)
+        groups, run_batch = [], gpu.run_batch
+
+        def timed_run_batch(part):            # each group's size and time
+            t0 = clock()
+            out = run_batch(part)
+            groups.append((len(part), clock() - t0))
+            return out
+
+        gpu.run_batch = timed_run_batch
+        served = copy.deepcopy(txns)
+        gc_pauses.clear()
+        gc.callbacks.append(on_gc)
+        try:
+            res = serve_open_loop(gpu, served, arr, batch=B, clock=clock)
+        finally:
+            gc.callbacks.remove(on_gc)
+        del gpu.run_batch
+        gc2 = [t for gen, t in gc_pauses if gen == 2]
+        sizes = [g_ for g_, _ in groups]
+        full = [t for g_, t in groups if g_ == B] or [0.0]
+        dispatches += gpu.switch.dispatch_count - d0
+        check(res["served"] == n and res["dropped"] == 0,
+              f"openloop: served {res['served']}, dropped {res['dropped']}")
+        check(np.array_equal(gpu.switch.read_all(), cpu.switch.read_all()),
+              f"openloop: registers differ from the CPU port at {mult}x")
+        check(gpu.switch.next_gid == cpu.switch.next_gid,
+              f"openloop: next_gid differs at {mult}x")
+        check(_stores(gpu) == _stores(cpu),
+              f"openloop: node stores differ at {mult}x")
+        rows.append(res)
+        print(f"openloop [{label}]: {mult}x = offered "
+              f"{res['offered_rate']:.1f} txn/s: achieved "
+              f"{res['achieved_rate']:.1f} txn/s, p50 {res['p50'] * 1e3:.3f}"
+              f" ms, p99 {res['p99'] * 1e3:.3f} ms, p999 "
+              f"{res['p999'] * 1e3:.3f} ms, mean {res['mean'] * 1e3:.3f} "
+              f"ms, utilization {res['utilization']:.4f}, backlog peak "
+              f"{res['backlog_peak']}; {len(groups)} groups of mean size "
+              f"{statistics.mean(sizes):.1f} ({sizes.count(B)} full), "
+              f"run_batch per group median "
+              f"{statistics.median(t for _, t in groups) * 1e3:.3f} ms, "
+              f"max {max(t for _, t in groups) * 1e3:.3f} ms, per full "
+              f"group median {statistics.median(full) * 1e3:.3f} ms; "
+              f"Python gc: {len(gc_pauses)} collections, "
+              f"{sum(t for _, t in gc_pauses) * 1e3:.3f} ms, of which "
+              f"{len(gc2)} of generation 2, {sum(gc2) * 1e3:.3f} ms; "
+              "registers, stores and next_gid equal to the CPU port",
+              flush=True)
+    launches = dict(tk.LAUNCHES)
+    check(launches["switch_txn_smem"] == dispatches > 0
+          and launches["switch_txn"] == 0,
+          f"openloop: {launches} for {dispatches} dispatches")
+    print(f"openloop [{label}]: knee (achieved >= 0.9 x offered) "
+          f"{find_knee(rows):.1f} txn/s of rows at "
+          + ", ".join(f"{r['offered_rate']:.1f}" for r in rows)
+          + f"; launches {launches} for {dispatches} dispatches",
+          flush=True)
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -1643,7 +2025,7 @@ def main():
     kernels = kernel_checks(tk, lib, dev)
     kernels.append(scan_kernel_checks(tk, lib, dev))
     kernels.append(moe_route_checks(mr, libs["moe_route"], dev))
-    main_launches, gpu, cpu, hi, p = main_path(tk, smi)
+    main_launches, gpu, cpu, hi, p, main_rate = main_path(tk, smi)
     launches = {"switch_txn": main_launches["switch_txn_smem"]}
     launches["result_gather"] = read_path(tk, gpu, cpu, hi)["result_gather"]
     scan_launches, scan_gpu = scan_path(tk)
@@ -1661,6 +2043,9 @@ def main():
     check(all(kd["launches"] > 0 for kd in kernels),
           f"a kernel was not launched on its path: {launches}")
     smoke_chain()
+    kernels[0].update(tpcc_path(tk, smi))
+    drift_path(tk, smi)
+    openloop_path(tk, smi, main_rate)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

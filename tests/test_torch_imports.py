@@ -60,3 +60,21 @@ def test_port_sources_import_nothing_of_jax_or_repro_at_any_depth():
     assert files
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad
+
+
+def test_port_examples_import_nothing_of_jax_or_repro():
+    """The port's example scripts name neither jax nor the JAX package."""
+    files = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert ROOT / "examples" / "quickstart_torch.py" in files
+    bad = [b for f in files for b in _forbidden_imports(f)]
+    assert not bad, bad
+
+
+def test_quickstart_torch_runs_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    script = str(ROOT / "examples" / "quickstart_torch.py")
+    out = subprocess.run([sys.executable, script, "--device", "cpu"],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "switch recovered from WALs" in out.stdout
