@@ -73,7 +73,20 @@ Phases (each one exits non-zero on failure):
               0.5x, 1x and 2x of phase 4's txn/s (Poisson, 4,096 txns,
               batch 256, a clock that synchronizes the card): p50, p99,
               p999, achieved rate, utilization and the knee; registers,
-              stores and next_gid against a CPU port cluster.
+              stores and next_gid against a CPU port cluster;
+16. train   — the model zoo's training path: (a) ``qwen3_moe_235b_a22b``
+              at full width cut to 2 layers, bf16, int8 AdamW moments,
+              4 steps of 8 x 512 synthetic tokens through
+              ``make_train_step`` (32,768 ids a plan: one moe_route
+              launch per layer per step, none in the backward), the
+              step-0 loss against ``loss_fn``, moe_route and the plan on
+              the real streams, the sliced AdamW update against an
+              unsliced one, step time, tokens/s, MFU, peak memory, the
+              optimizer's share and a profiled step; (b) the launcher
+              at the smoke size, 4 steps + resume to 6 against a
+              continuous 6, bit for bit under deterministic algorithms;
+              (c) a float32 smoke train step on the card against the
+              CPU port (loss, gradients, routing plans).
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -83,6 +96,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -1993,9 +2007,328 @@ def openloop_path(tk, label, rate):
 
 
 
+# --------------------------------------------------------------- phase 16 --
+
+TRAIN_LAYERS, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 2, 8, 512, 4
+
+
+def _train_flops(cfg, tokens: int, seq: int):
+    """(FLOPs of one training step, active parameters per token): 6 x
+    active parameters x tokens (forward 2, backward 4), plus causal
+    attention, QK^T and PV over the lower triangle, 2 x seq^2 x heads x
+    head_dim a sequence a layer forward, times 3 with the backward.  The
+    embedding lookup is no FLOP; the head is active."""
+    m, dm, dh, H, G = (cfg.moe, cfg.d_model, cfg.resolved_head_dim(),
+                       cfg.n_heads, cfg.n_kv_heads)
+    per_layer = (2 * dm * H * dh + 2 * dm * G * dh + dm * m.n_experts
+                 + m.top_k * 3 * dm * m.d_ff_expert)
+    active = cfg.n_layers * per_layer + cfg.vocab_size * dm
+    attn = 3 * cfg.n_layers * (tokens // seq) * 2 * seq * seq * H * dh
+    return 6 * active * tokens + attn, active
+
+
+def _capture_plans(lm):
+    """Wrap ``lm.moe_ffn`` so that each call's routing plan is kept;
+    returns (plans, restore)."""
+    plans, orig = [], lm.moe_ffn
+
+    def moe_ffn(*args, **kwargs):
+        y, plan = orig(*args, **kwargs)
+        plans.append({k: v.detach() for k, v in plan.items()})
+        return y, plan
+
+    lm.moe_ffn = moe_ffn
+    return plans, lambda: setattr(lm, "moe_ffn", orig)
+
+
+def train_path(mr, smi):
+    """(a) The training path at full width: ``qwen3_moe_235b_a22b`` cut to
+    2 layers, the launcher's plan (int8 moments, one microbatch) and
+    TrainConfig, ``SyntheticLM`` batches of 8 x 512 tokens, steps 0-3
+    through ``make_train_step``.  Each step's plan routes 32,768 ids per
+    layer, past ``PLAN_MAX_N``: ``torch.argsort`` + one ``moe_route``
+    launch per layer, in the forward only.  Returns the moe_route entry's
+    training numbers."""
+    import dataclasses
+
+    from repro_torch.common import hw
+    from repro_torch.common.types import (ParallelConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import grads_of, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import make_plan
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    check(held < 1e9, f"train: {held / 1e9:.2f} GB still allocated before "
+          "the phase")
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=TRAIN_LAYERS)
+    plan = make_plan(cfg, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_B),
+                     ParallelConfig(remat="none", microbatch=1))
+    check(plan.microbatch == 1 and plan.parallel.moment_dtype == "int8",
+          f"train: plan {plan.describe()}")
+    tc = TrainConfig(warmup_steps=10)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED))
+    opt = adamw.init_state(params, plan.parallel.moment_dtype)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.values())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"train: {cfg.name} at full width, {cfg.n_layers} of 94 layers, "
+          f"{n_params:,} parameters; parameters and int8 moments "
+          f"{state_gb:.2f} GB, drawn in {time.perf_counter() - t0:.2f} s; "
+          f"{plan.describe()}", flush=True)
+    data = SyntheticLM(cfg, TRAIN_SEQ, TRAIN_B)
+    step_fn = make_train_step(cfg, plan.parallel, tc)
+    b0 = {k: torch.as_tensor(v, device="cuda")
+          for k, v in data.batch(0).items()}
+    _reset(mr)
+    with torch.no_grad():
+        ref0, _ = lm.loss_fn(cfg, params, b0, plan.parallel)
+        ref0 = float(ref0)
+    fwd = dict(mr.LAUNCHES)
+    check(fwd == {"moe_route": cfg.n_layers, "moe_plan": 0},
+          f"train: a forward launched {fwd}, expected one moe_route per "
+          "layer and no moe_plan")
+    probe = {n: params[n][..., :8].clone() for n in ("final_norm",
+                                                     "layers/wq", "embed")}
+    losses, secs, per_step = [], [], []
+    for s in range(TRAIN_STEPS):
+        batch = data.batch(s)
+        torch.cuda.synchronize()
+        _reset(mr)
+        t1 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        per_step.append(dict(mr.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated()
+    train_launches = sum(p["moe_route"] for p in per_step)
+    check(all(np.isfinite(losses)), f"train: losses {losses}")
+    check(abs(losses[0] - ref0) <= 1e-3 * abs(ref0),
+          f"train: step 0 loss {losses[0]} against loss_fn {ref0}")
+    check(all(p == fwd for p in per_step),
+          f"train: launches per step {per_step}, expected {fwd} (the "
+          "forward's): the backward and the update launch none")
+    changed = [n for n, t in probe.items()
+               if not torch.equal(t, params[n][..., :8])]
+    check(changed, "train: no parameter changed")
+    step_s = statistics.median(secs[1:])
+    tokens = TRAIN_B * TRAIN_SEQ
+    flops, active = _train_flops(cfg, tokens, TRAIN_SEQ)
+    mfu = flops / step_s / hw.PEAK_FLOPS_BF16
+    print(f"train: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_SEQ} tokens; "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)} (step 0 "
+          f"against loss_fn {ref0:.6f}: rel diff "
+          f"{abs(losses[0] - ref0) / abs(ref0):.2e}); step times "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in secs)} ms; median of "
+          f"steps 1-3 {step_s * 1e3:.3f} ms = {tokens / step_s:,.1f} "
+          f"tokens/s; peak memory {peak / 1e9:.2f} GB; MFU {mfu:.4%} "
+          f"({flops / 1e12:.3f} TFLOP a step = 6 x {active:,} active "
+          f"parameters x {tokens} tokens + causal attention, over "
+          f"{hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s bf16) | {smi}; "
+          f"launches per step {per_step[0]} (forward alone {fwd}); "
+          f"changed {changed}", flush=True)
+
+    # moe_route and the plan on each layer's real training stream, after
+    # the counted run; moe_route timed at N = 32,768 beside its plain
+    # version and torch.argsort
+    plans, restore = _capture_plans(lm)
+    try:
+        with torch.no_grad():
+            lm.loss_fn(cfg, params, b0, plan.parallel)
+    finally:
+        restore()
+    check(len(plans) == cfg.n_layers, "train: a MoE call was missed")
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    capacity = capacity_for(TRAIN_B * TRAIN_SEQ, cfg.moe)
+    err = 0
+    for i, p in enumerate(plans):
+        ids = p["ids"].reshape(-1)
+        srt = ids[p["order"].long()].contiguous()
+        got, want = mr.moe_route_call(srt), mr.moe_route_plain(srt)
+        torch.cuda.synchronize()
+        err = max(err, int((got - want).abs().max()))
+        want_plan = mr.route_plan_plain(ids, E, capacity, k)
+        check(torch.equal(got, want) and all(
+            torch.equal(p[n], w) for n, w in zip(
+                ("order", "slot", "admit", "tok"), want_plan)),
+            f"train: moe_route or the plan differs from plain on layer "
+            f"{i}'s stream (N={ids.numel()})")
+    srt = plans[0]["ids"].reshape(-1)[plans[0]["order"].long()].contiguous()
+    n = srt.numel()
+    ms = time_cuda(lambda: mr.moe_route_call(srt), 50, 11)
+    plain_ms = time_cuda(lambda: mr.moe_route_plain(srt), 50, 11)
+    ids0 = plans[0]["ids"].reshape(-1).contiguous()
+    lib_ms = time_cuda(lambda: torch.argsort(ids0, stable=True), 50, 11)
+    bnd, by = bound_ms(2 * 4 * n, 0)
+    print(f"train: moe_route equal to plain on the {len(plans)} layers' "
+          f"streams (N={n}); {ms * 1e3:.2f} us per call, plain "
+          f"{plain_ms * 1e3:.2f} us, torch.argsort(stable) {lib_ms * 1e3:.2f}"
+          f" us, bound {bnd * 1e3:.4f} us ({by})", flush=True)
+    del plans
+
+    # the optimizer alone, on real gradients: the sliced update against
+    # an unsliced one on layers/wq (bit for bit), then its time
+    _, grads = grads_of(cfg, plan.parallel, params, b0)
+    wq = "layers/wq"
+    check(len(adamw._row_slices(params[wq], adamw.SLICE_ELEMS)) > 1,
+          "train: SLICE_ELEMS does not split layers/wq")
+    outs = []
+    for elems in (adamw.SLICE_ELEMS, params[wq].numel()):
+        one = adamw.AdamWState(opt.step.clone(), *({wq: d[wq].clone()} for d
+                                                   in (opt.m, opt.m_scale,
+                                                       opt.v, opt.v_scale)))
+        saved, adamw.SLICE_ELEMS = adamw.SLICE_ELEMS, elems
+        try:
+            outs.append(adamw.apply_updates({wq: params[wq].clone()},
+                                            {wq: grads[wq]}, one, tc,
+                                            "int8")[:2])
+        finally:
+            adamw.SLICE_ELEMS = saved
+    (pa, sa), (pb, sb) = outs
+    check(torch.equal(pa[wq], pb[wq]) and all(
+        torch.equal(getattr(sa, f)[wq], getattr(sb, f)[wq])
+        for f in ("m", "m_scale", "v", "v_scale")),
+        "train: the sliced AdamW update differs from the unsliced one on "
+        "layers/wq")
+    del outs, pa, pb, sa, sb
+    opt_bytes = sum(p.numel() * (2 * p.element_size() + grads[n]
+                                 .element_size() + 4)
+                    + 4 * 4 * opt.m_scale[n].numel()
+                    for n, p in params.items())
+    opt_bound, opt_by = bound_ms(opt_bytes, 0)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    params, opt, _ = adamw.apply_updates(params, grads, opt, tc, "int8")
+    e1.record()
+    e1.synchronize()
+    opt_ms = e0.elapsed_time(e1)
+    del grads
+    torch.cuda.empty_cache()
+    print(f"train: the sliced AdamW update equals an unsliced one on "
+          f"{wq} ({params[wq].numel():,} elements, "
+          f"{len(adamw._row_slices(params[wq], adamw.SLICE_ELEMS))} slices)"
+          f" bit for bit; the whole update {opt_ms:.3f} ms (CUDA events) = "
+          f"{opt_ms / (step_s * 1e3):.2%} of the median step; bound "
+          f"{opt_bound:.3f} ms ({opt_bytes / 1e9:.2f} GB, {opt_by}) | {smi}",
+          flush=True)
+    _profile(f"train: one step | {smi}",
+             lambda: step_fn(params, opt, data.batch(TRAIN_STEPS)), top=12)
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    return dict(launches=train_launches, n=n, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                max_abs_err=err, step_ms=step_s * 1e3,
+                tokens_per_s=tokens / step_s, mfu=mfu,
+                peak_gb=peak / 1e9, optimizer_ms=opt_ms,
+                optimizer_share=opt_ms / (step_s * 1e3), losses=losses)
+
+
+def launcher_restart(mr):
+    """(b) The launcher on the card at the smoke size: 4 steps with a
+    checkpoint every 2, then 6 with resume, against a continuous 6-step
+    run: the final parameters bit for bit, under
+    ``torch.use_deterministic_algorithms`` (this phase only)."""
+    import tempfile
+
+    from repro_torch.launch.train import train
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            kw = dict(batch=2, seq=32, smoke=True, ckpt_every=2,
+                      device="cuda")
+            _reset(mr)
+            train(MOE_ARCH, steps=4, ckpt_dir=f"{d}/a", **kw)
+            resumed, loss_r = train(MOE_ARCH, steps=6, ckpt_dir=f"{d}/a",
+                                    **kw)
+            cont, loss_c = train(MOE_ARCH, steps=6, ckpt_dir=f"{d}/b", **kw)
+            launches = dict(mr.LAUNCHES)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    same = [n for n in cont if torch.equal(cont[n], resumed[n])]
+    check(len(same) == len(cont) and loss_r == loss_c,
+          f"train: (b) resumed and continuous runs differ ({len(same)} of "
+          f"{len(cont)} tensors equal; losses {loss_r} / {loss_c})")
+    check(launches["moe_plan"] == 2 * 2 * 6 and launches["moe_route"] == 0,
+          f"train: (b) launches {launches}, expected one moe_plan per layer "
+          "per step")
+    print(f"train: (b) launcher 4 steps + resume to 6 equals a continuous "
+          f"6-step run bit for bit ({len(cont)} tensors; last loss "
+          f"{loss_c:.6f}), deterministic algorithms on; launches {launches}",
+          flush=True)
+
+
+def train_chain(mr):
+    """(c) One ``make_train_step`` of the smoke config in float32 on the
+    card and through the CPU port, from the same converted parameters
+    and batch (2 x 32 tokens, top-2: N = 128 ids, one moe_plan launch per
+    layer): the loss within 1e-5, every gradient within rtol 1e-4 / atol
+    1e-6, the routing plans exactly."""
+    import dataclasses
+
+    from repro_torch.common.types import ParallelConfig, TrainConfig
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.convert import convert_params
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import grads_of, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_smoke(MOE_ARCH), dtype="float32")
+    flat = {n: t.numpy() for n, t in lm.init_params(
+        cfg, torch.Generator().manual_seed(SEED)).items()}
+    batch = SyntheticLM(cfg, 32, 2).batch(0)
+    par = ParallelConfig(remat="none", microbatch=1, moment_dtype="float32")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = convert_params(flat, cfg, dev)
+        _, grads = grads_of(cfg, par, params, batch)
+        plans, restore = _capture_plans(lm)
+        _reset(mr)
+        try:
+            _, _, m = make_train_step(cfg, par, TrainConfig(warmup_steps=10))(
+                params, adamw.init_state(params, "float32"), batch)
+        finally:
+            restore()
+        out[dev] = (float(m["loss"]), {n: g.cpu() for n, g in grads.items()},
+                    [{k: v.cpu() for k, v in p.items()} for p in plans],
+                    dict(mr.LAUNCHES))
+    (lg, gg, pg, launches), (lc, gc, pc, _) = out["cuda"], out["cpu"]
+    check(abs(lg - lc) <= 1e-5 * abs(lc), f"train: (c) loss {lg} against "
+          f"the CPU port's {lc}")
+    check(launches == {"moe_plan": cfg.n_layers, "moe_route": 0},
+          f"train: (c) launches {launches}")
+    worst = 0.0
+    for n, g in gc.items():
+        torch.testing.assert_close(gg[n], g, rtol=1e-4, atol=1e-6)
+        worst = max(worst, float((gg[n] - g).abs().max()))
+    check(len(pg) == len(pc) == cfg.n_layers and all(
+        torch.equal(a[k], b[k]) for a, b in zip(pg, pc)
+        for k in ("order", "slot", "admit", "tok", "ids")),
+        "train: (c) the routing plans differ between the card and the CPU")
+    print(f"train: (c) {cfg.name} float32 train step on the card equals the "
+          f"CPU port: loss {lg:.7f} / {lc:.7f}, gradients max abs diff "
+          f"{worst:.3e} (rtol 1e-4 / atol 1e-6), routing plans equal; "
+          f"launches {launches}", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
+    # phase 16 (b) runs under torch.use_deterministic_algorithms, which
+    # asks for a fixed cuBLAS workspace before cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.moe_route import moe_route as mr
@@ -2046,6 +2379,11 @@ def main():
     kernels[0].update(tpcc_path(tk, smi))
     drift_path(tk, smi)
     openloop_path(tk, smi, main_rate)
+    train = train_path(mr, smi)
+    kernels[3]["train_launches"] = train.pop("launches")
+    kernels[3]["train"] = train
+    launcher_restart(mr)
+    train_chain(mr)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

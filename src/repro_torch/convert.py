@@ -8,6 +8,10 @@ started from the result continues exactly where the reference left off.
 
 ``convert_params``: the reference model zoo's parameters (flat numpy
 arrays) become the port's model parameters on a given device.
+
+``convert_opt_state``: the reference's ``AdamWState`` (numpy arrays)
+becomes the port's on a given device, so that tests carry optimizer state
+as well as weights from one package to the other.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.core.hotset import HotIndex
 from repro_torch.core.layout import Placement
 from repro_torch.models.lm import build_defs
-from repro_torch.models.params import torch_dtype
+from repro_torch.models.params import flatten, torch_dtype
+from repro_torch.optim.adamw import AdamWState
 
 
 def convert_state(registers: np.ndarray,
@@ -90,3 +95,26 @@ def convert_params(flat: Mapping[str, np.ndarray], cfg, device=None):
         out[name] = _tensor(a).to(device=device,
                                   dtype=torch_dtype(d.dtype or cfg.dtype))
     return out
+
+
+def convert_opt_state(state, device=None) -> AdamWState:
+    """The reference's optimizer state as the port's.
+
+    state: anything with the fields of ``repro.optim.adamw.AdamWState``
+    (``step``, ``m``, ``m_scale``, ``v``, ``v_scale``) holding numpy
+    arrays, the moment trees nested as the reference's parameters or
+    already flat; bfloat16 payloads carry over bit for bit, int8 and
+    float32 as they are.  device: ``None`` -> ``cuda``, which must exist.
+    The four moment trees must name the same leaves."""
+    device = resolve_device(device)
+    trees = {f: flatten(getattr(state, f)) for f in
+             ("m", "m_scale", "v", "v_scale")}
+    names = set(trees["m"])
+    if any(set(t) != names for t in trees.values()):
+        raise KeyError("the moment trees name different leaves")
+    out = {f: {n: _tensor(np.asarray(a)).to(device) for n, a in t.items()}
+           for f, t in trees.items()}
+    step = torch.tensor(np.asarray(state.step), dtype=torch.int32,
+                        device=device)
+    return AdamWState(step, out["m"], out["m_scale"], out["v"],
+                      out["v_scale"])

@@ -1,1 +1,1 @@
-"""Serving entry points (counterparts of ``repro/launch``)."""
+"""Training and serving entry points (counterparts of ``repro/launch``)."""

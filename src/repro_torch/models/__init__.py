@@ -1,2 +1,2 @@
-"""The model zoo's MoE serving path in PyTorch (counterparts of
-``repro/models``): parameters, layers, MoE routing, the LM and decode."""
+"""The model zoo's MoE path in PyTorch (counterparts of ``repro/models``):
+parameters, layers, MoE routing, the LM with its loss, and decode."""

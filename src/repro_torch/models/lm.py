@@ -7,19 +7,23 @@ logical axes, init), as in the reference.  The parameters are the flat
 tensors stacked over layers; ``LM`` is an ``nn.Module`` over them whose
 ``Attention`` and ``MoE`` submodules hold one layer's slice of each
 stacked tensor (a view, no copy).  The block bodies are plain functions on
-tensors under the reference's names.  The port runs on one device, so the
+tensors under the reference's names.  Training runs ``forward`` and
+``loss_fn`` on the flat dict itself, with each stacked tensor split per
+layer inside the forward, so autograd reaches the tensors that the
+optimizer and the checkpoint hold.  The port runs on one device, so the
 reference's sharding constraints (``constrain``) are the identity and are
-left out.  The other families (dense, vlm, audio, rwkv, hybrid), shared
-experts and training (``loss_fn``) are not ported yet: ROADMAP Queue 1
-item 9.
+left out.  The other families (dense, vlm, audio, rwkv, hybrid) and
+shared experts are not ported yet: ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.types import ModelConfig
 from repro_torch.models import params as P
@@ -207,26 +211,42 @@ class LM(nn.Module):
 
     def forward(self, batch, collect_cache: bool = False):
         """Prefill forward.  Returns (logits, cache_or_None, aux)."""
-        cfg = self.cfg
-        top = self.top.weights()
-        x = embed_inputs(cfg, top, batch)
-        B, L, _ = x.shape
-        positions = torch.arange(L, dtype=torch.int32, device=x.device)[None]
-        cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim(),
-                                cfg.rope_theta)
-        capacity = capacity_for(B * L, cfg.moe)
-        auxl, ks, vs = 0.0, [], []
-        for layer in self.layers:
-            x, (k, v) = layer.attn(x, cos, sin)
-            x, plan = layer.moe(x, capacity)
-            auxl = auxl + load_balance_loss(plan["probs"], plan["ids"],
-                                            cfg.moe.n_experts)
-            if collect_cache:
-                ks.append(k)
-                vs.append(v)
-        cache = (dict(k=torch.stack(ks), v=torch.stack(vs))
-                 if collect_cache else None)
-        return lm_head(cfg, top, x), cache, {"moe_aux": auxl / cfg.n_layers}
+        return _forward(self.cfg, self.top.weights(),
+                        [(layer.attn, layer.moe) for layer in self.layers],
+                        batch, collect_cache)
+
+
+def _forward(cfg: ModelConfig, top, layers, batch, collect_cache=False,
+             remat="none"):
+    """The forward over ``layers``, one (attn(x, cos, sin), moe(x,
+    capacity)) pair per layer: the ``Layer`` modules (serving) or the
+    block bodies on one layer's tensors (training)."""
+    x = embed_inputs(cfg, top, batch)
+    B, L, _ = x.shape
+    positions = torch.arange(L, dtype=torch.int32, device=x.device)[None]
+    cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim(),
+                            cfg.rope_theta)
+    capacity = capacity_for(B * L, cfg.moe)
+
+    def body(x, attn, moe):
+        x, kv = attn(x, cos, sin)
+        x, plan = moe(x, capacity)
+        lb = load_balance_loss(plan["probs"], plan["ids"], cfg.moe.n_experts)
+        return x, lb, kv
+
+    auxl, ks, vs = 0.0, [], []
+    for attn, moe in layers:
+        if remat == "full":
+            x, lb, (k, v) = checkpoint(body, x, attn, moe, use_reentrant=False)
+        else:
+            x, lb, (k, v) = body(x, attn, moe)
+        auxl = auxl + lb
+        if collect_cache:
+            ks.append(k)
+            vs.append(v)
+    cache = (dict(k=torch.stack(ks), v=torch.stack(vs))
+             if collect_cache else None)
+    return lm_head(cfg, top, x), cache, {"moe_aux": auxl / cfg.n_layers}
 
 
 def as_model(cfg: ModelConfig, params) -> LM:
@@ -240,8 +260,61 @@ def as_model(cfg: ModelConfig, params) -> LM:
     return LM(cfg, params)
 
 
-def forward(cfg: ModelConfig, params, batch, collect_cache=False):
-    """Prefill forward over ``batch["tokens"]`` [B, L].  Returns (logits
-    [B, L, V] float32, cache {k, v: [L_layers, B, L, G, dh]} or None,
-    aux)."""
-    return as_model(cfg, params)(batch, collect_cache)
+def _remat(parallel) -> str:
+    """The parallel plan's remat mode; raises on what the port does not
+    run."""
+    if parallel is None:
+        return "none"
+    if getattr(parallel, "moe_token_motion", False) or getattr(
+            parallel, "moe_arbitration_shards", 1) > 1:
+        raise NotImplementedError(
+            "MoE token motion and sharded arbitration are not ported yet "
+            "(ROADMAP Queue 1 item 9, sharding and dry-run)")
+    remat = getattr(parallel, "remat", "none")
+    if remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={remat!r} is not ported yet (ROADMAP Queue 1 item 9, "
+            "sharding and dry-run); the port runs 'none' and 'full'")
+    return remat
+
+
+def forward(cfg: ModelConfig, params, batch, parallel=None,
+            collect_cache=False):
+    """Prefill / training forward over ``batch["tokens"]`` [B, L].
+    Returns (logits [B, L, V] float32, cache {k, v: [L_layers, B, L, G,
+    dh]} or None, aux).
+
+    An ``LM`` runs its modules (serving; ``parallel`` does not apply).  A
+    flat parameter dict runs the same block bodies on the dict's tensors,
+    split per layer here, so the result is differentiable with respect to
+    them; ``parallel.remat == "full"`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does."""
+    if isinstance(params, LM):
+        return as_model(cfg, params)(batch, collect_cache)
+    _require_ported(cfg)
+    per_layer = {n[len("layers/"):]: t.unbind(0) for n, t in params.items()
+                 if n.startswith("layers/")}
+    lps = [{n: ts[i] for n, ts in per_layer.items()}
+           for i in range(cfg.n_layers)]
+    layers = [(functools.partial(_attn_block, cfg, lp),
+               functools.partial(_moe_block, cfg, lp)) for lp in lps]
+    return _forward(cfg, params, layers, batch, collect_cache,
+                    _remat(parallel))
+
+
+def loss_fn(cfg: ModelConfig, params, batch, parallel=None):
+    """Next-token cross-entropy over ``batch["labels"]`` [B, L] (entries
+    < 0 masked out), plus the reference's z-loss and MoE load-balance
+    term.  Returns (total, {"loss", "zloss", "moe_aux"}), float32."""
+    logits, _, aux = forward(cfg, params, batch, parallel)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    # the gold logit by a gather (the reference's one-hot masked sum gives
+    # the same value); a masked label gathers class 0 and is masked below
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = lse - gold.float()
+    mask = (labels >= 0).float()
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    zloss = 1e-4 * torch.mean(lse * lse)
+    total = loss + zloss + 0.01 * aux["moe_aux"]
+    return total, {"loss": loss, "zloss": zloss, "moe_aux": aux["moe_aux"]}
