@@ -86,7 +86,23 @@ Phases (each one exits non-zero on failure):
               at the smoke size, 4 steps + resume to 6 against a
               continuous 6, bit for bit under deterministic algorithms;
               (c) a float32 smoke train step on the card against the
-              CPU port (loss, gradients, routing plans).
+              CPU port (loss, gradients, routing plans);
+17. families — every other family of the registry at full width, bf16,
+              one after another: rwkv6_7b, zamba2_2p7b, gemma_2b,
+              qwen1p5_0p5b, starcoder2_15b, yi_34b, internvl2_1b (128
+              patches + 128 tokens), musicgen_large (256 frames, a frame
+              a decode step) and kimi_k2_1t_a32b cut to 1 of 61 layers
+              (its shared expert; one moe_plan launch per forward, the
+              plan against plain on every real stream); (a) 8 requests x
+              256 prompt positions x 16 generated through ``generate``:
+              prefill ms, decode ms a step, peak memory; (b) teacher-
+              forced decode against the full forward in bf16 (5e-2 of
+              each position's logit scale, on the pairs routed alike for
+              Kimi-K2) and in float32 at 1e-4 at the deepest cut whose
+              float32 parameters fit 60 GB; (c) the smoke config of every
+              architecture in float32 on the card against the CPU port
+              (forward, caches, decode, a train step's loss and
+              gradients).
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -1371,6 +1387,56 @@ def _plan_checks(plan, E, C, where):
     return int((~admit).sum())
 
 
+def _route_streams(mr, cfg, model, prompt, where, frames=None):
+    """The routing plan on each MoE layer's real streams: forward
+    pre-hooks capture each layer's input over a prefill of ``prompt`` and
+    one decode step through ``generate``; route() rebuilds its plan, and
+    moe_route and the plan must equal their plain versions, the plan
+    meet ``_plan_checks``.  Returns (the captured (layer, x, capacity)
+    triples, entries dropped per layer {"prefill": [...], "decode":
+    [...]})."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import capacity_for, route
+
+    E = cfg.moe.n_experts
+    captured = []
+    hooks = [layer.moe.register_forward_pre_hook(
+        lambda mod, args, i=i: captured.append((i, args[0].clone(), args[1])))
+        for i, layer in enumerate(model.layers)]
+    try:
+        generate(cfg, model, prompt, 2, "cuda", frames)
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(captured) == 2 * cfg.n_layers, f"{where}: hooks missed a "
+          "layer")
+    drops = {"prefill": [], "decode": []}
+    with torch.inference_mode():
+        for j, (i, x, cap) in enumerate(captured):
+            phase = "prefill" if j < cfg.n_layers else "decode"
+            want_cap = capacity_for(x.numel() // cfg.d_model, cfg.moe)
+            check(cap == want_cap, f"{where}: {phase} capacity {cap}")
+            lp = model.layers[i].moe.weights()
+            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+            plan = route(h.reshape(-1, cfg.d_model), lp["router"], cfg.moe,
+                         cap)
+            ids = plan["ids"].reshape(-1)[plan["order"].long()].contiguous()
+            got, want = mr.moe_route_call(ids), mr.moe_route_plain(ids)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"{where}: moe_route differs from "
+                  f"plain on layer {i}'s {phase} stream (N={ids.numel()})")
+            want = mr.route_plan_plain(plan["ids"].reshape(-1), E, cap,
+                                       cfg.moe.top_k)
+            got = [plan[k] for k in ("order", "slot", "admit", "tok")]
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{where}: the routing plan differs from plain on layer "
+                  f"{i}'s {phase} stream (N={ids.numel()})")
+            drops[phase].append(_plan_checks(plan, E, cap,
+                                             f"{phase} layer {i}"))
+    return captured, drops
+
+
 def serve_path(mr):
     """The full-width MoE serving path through ``generate``; returns the
     moe_plan launches of its counted run."""
@@ -1380,8 +1446,7 @@ def serve_path(mr):
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import lm
-    from repro_torch.models.layers import rms_norm
-    from repro_torch.models.moe import capacity_for, route
+    from repro_torch.models.moe import capacity_for
 
     # float32 products in full float32 (the default, stated here): the
     # router, attention scores and the head run on float32 operands
@@ -1427,40 +1492,9 @@ def serve_path(mr):
           f"{peak / 1e9:.2f} GB", flush=True)
 
     # (a), (b): the sorted-id streams route builds from each layer's MoE
-    # input, captured by forward pre-hooks over prefill + one decode step
-    captured = []
-    hooks = [layer.moe.register_forward_pre_hook(
-        lambda mod, args, i=i: captured.append((i, args[0].clone(), args[1])))
-        for i, layer in enumerate(model.layers)]
-    try:
-        generate(cfg, model, {"tokens": prompts}, 2, "cuda")
-    finally:
-        for h in hooks:
-            h.remove()
-    check(len(captured) == 2 * cfg.n_layers, "serve: hooks missed a layer")
-    drops = {"prefill": [], "decode": []}
-    with torch.inference_mode():
-        for j, (i, x, cap) in enumerate(captured):
-            phase = "prefill" if j < cfg.n_layers else "decode"
-            want_cap = capacity_for(x.numel() // cfg.d_model, cfg.moe)
-            check(cap == want_cap, f"serve: {phase} capacity {cap}")
-            lp = model.layers[i].moe.weights()
-            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-            plan = route(h.reshape(-1, cfg.d_model), lp["router"], cfg.moe,
-                         cap)
-            ids = plan["ids"].reshape(-1)[plan["order"].long()].contiguous()
-            got, want = mr.moe_route_call(ids), mr.moe_route_plain(ids)
-            torch.cuda.synchronize()
-            check(torch.equal(got, want), f"serve: moe_route differs from "
-                  f"plain on layer {i}'s {phase} stream (N={ids.numel()})")
-            want = mr.route_plan_plain(plan["ids"].reshape(-1), E, cap,
-                                       cfg.moe.top_k)
-            got = [plan[k] for k in ("order", "slot", "admit", "tok")]
-            check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                  f"serve: the routing plan differs from plain on layer "
-                  f"{i}'s {phase} stream (N={ids.numel()})")
-            drops[phase].append(_plan_checks(plan, E, cap,
-                                             f"{phase} layer {i}"))
+    # input, captured over prefill + one decode step
+    captured, drops = _route_streams(mr, cfg, model, {"tokens": prompts},
+                                     "serve")
     caps = (capacity_for(MOE_B * MOE_PROMPT, cfg.moe),
             capacity_for(MOE_B, cfg.moe))
     print(f"serve: (a) moe_route and the moe_plan routing plan equal to "
@@ -1471,7 +1505,8 @@ def serve_path(mr):
           f"{drops['decode']}", flush=True)
 
     tok_t = torch.tensor(prompts, dtype=torch.int32, device="cuda")
-    tf = _teacher_forced(cfg, model, tok_t, 5e-2)
+    tf = _teacher_forced(cfg, model, {"tokens": tok_t}, MOE_PROMPT - 8,
+                         5e-2)
     print(f"serve: bf16 at capacity factor {cfg.moe.capacity_factor}, "
           f"teacher-forced decode over the last 8 prompt positions against "
           f"the full forward: max abs diff {tf['max']:.3e}, {tf['bad']} of "
@@ -1507,7 +1542,8 @@ def serve_path(mr):
         for flag in (reduced, not reduced):
             mm.allow_bf16_reduced_precision_reduction = flag
             readings[flag] = _teacher_forced(nodrop, lm.LM(nodrop, params),
-                                             tok_t, 5e-2)
+                                             {"tokens": tok_t},
+                                             MOE_PROMPT - 8, 5e-2)
     finally:
         mm.allow_bf16_reduced_precision_reduction = reduced
     for flag, tf in readings.items():
@@ -1535,7 +1571,8 @@ def serve_path(mr):
     cfg32 = dataclasses.replace(nodrop, dtype="float32")
     model = lm.LM(cfg32, lm.init_params(cfg32, torch.Generator(
         device="cuda").manual_seed(SEED)))
-    tf = _teacher_forced(cfg32, model, tok_t, 1e-4)
+    tf = _teacher_forced(cfg32, model, {"tokens": tok_t}, MOE_PROMPT - 8,
+                         1e-4)
     check(tf["bad"] == 0, f"serve: (c) float32: {tf['bad']} of {tf['n']} "
           f"teacher-forced decode logits differ from the full forward "
           f"beyond 1e-4 (max {tf['max']:.3e})")
@@ -1550,56 +1587,99 @@ def serve_path(mr):
     return launches
 
 
-def _teacher_forced(cfg, model, tok_t, tol):
-    """Prefill all but the last 8 prompt tokens, teacher-force those 8
-    through decode (tests/test_models.py:62-95) and hold each step's
-    logits, and the prefill's last, against the full forward's.  Records
-    each layer's expert set per token in both runs: a (row, position)
-    pair is routed alike when every layer chose the same top-k experts
-    for every token of that row up to that position.  Returns a dict:
-    ``max``/``bad``/``n`` (max abs diff, logits beyond rtol/atol ``tol``,
-    logits compared), ``pairs`` and ``alike`` ((row, position) pairs, and
-    of those routed alike), and ``max_alike``/``bad_alike`` over them."""
+def _split_prompt(cfg, batch, lp):
+    """(the prefill batch of a prompt's first ``lp`` positions, [each later
+    position's decode input]): the audio stub's frames, else tokens after
+    the vision stub's patches (which all go to the prefill)."""
+    if cfg.frontend == "audio_stub":
+        f = batch["frames"]
+        return {"frames": f[:, :lp]}, [{"frames": f[:, i]}
+                                       for i in range(lp, f.shape[1])]
+    npt = batch["patches"].shape[1] if "patches" in batch else 0
+    tok = batch["tokens"]
+    pre = dict(batch, tokens=tok[:, :lp - npt])
+    return pre, [{"tokens": tok[:, i]} for i in range(lp - npt, tok.shape[1])]
+
+
+def _tf_decode(cfg, model, batch, lp):
+    """Prefill the first ``lp`` positions of ``batch``, pad the K/V to the
+    prompt's length, then teacher-force the other positions through
+    decode.  Returns (the prefill's last logits, [each step's logits],
+    the final cache)."""
+    from repro_torch.launch.serve import pad_cache
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    pre, steps = _split_prompt(cfg, batch, lp)
+    B = next(iter(batch.values())).shape[0]
+    dev = next(iter(batch.values())).device
+    step = make_serve_step(cfg)
+    with torch.inference_mode():
+        last, cache = make_prefill_step(cfg)(model, pre)
+        cache = pad_cache(cache, len(steps))
+        out = []
+        for j, x in enumerate(steps):
+            pos = torch.full((B,), lp + j, dtype=torch.int32, device=dev)
+            logits, cache = step(model, cache, dict(x, pos=pos))
+            out.append(logits)
+    return last, out, cache
+
+
+def _teacher_forced(cfg, model, batch, lp, tol):
+    """Prefill the first ``lp`` positions of the prompt ``batch``,
+    teacher-force the rest through decode (tests/test_models.py:62-95)
+    and hold each step's logits, and the prefill's last, against the full
+    forward's.  For the ``moe`` family, records each layer's expert set
+    per token in both runs: a (row, position) pair is routed alike when
+    every layer chose the same top-k experts for every token of that row
+    up to that position (every pair is alike in the other families).
+    Returns a dict: ``max``/``bad``/``n`` (max abs diff, logits beyond
+    rtol/atol ``tol``, logits compared), ``scaled`` (logits beyond
+    ``tol`` times the position's scale, 1 + its largest |logit|),
+    ``rel`` (the largest relative L2 difference of a position's logit
+    vector), ``pairs`` and ``alike`` ((row, position) pairs, and of
+    those routed alike), and ``max_alike``/``bad_alike``/
+    ``scaled_alike``/``rel_alike`` over them."""
     from repro_torch.models import lm
-    B, L = tok_t.shape
-    lp_, nl, k = L - 8, cfg.n_layers, cfg.moe.top_k
-    seen = []                    # each MoE call's [T, k] expert sets
-    hooks = [layer.moe.register_forward_hook(
-        lambda mod, args, out: seen.append(out[1]["ids"].sort(-1).values))
-        for layer in model.layers]
+    seen, hooks = [], []       # each MoE call's [T, k] expert sets
+    if cfg.family == "moe":
+        hooks = [layer.moe.register_forward_hook(
+            lambda mod, args, out: seen.append(out[1]["ids"].sort(-1).values))
+            for layer in model.layers]
     try:
         with torch.inference_mode():
-            full, _, _ = lm.forward(cfg, model, {"tokens": tok_t})
-            last, cache = make_prefill_step(cfg)(
-                model, {"tokens": tok_t[:, :lp_]})
-            pairs = [(last, full[:, lp_ - 1])]
-            cache = {n: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, 8))
-                     for n, a in cache.items()}
-            step = make_serve_step(cfg)
-            for i in range(lp_, L):
-                pos = torch.full((B,), i, dtype=torch.int32,
-                                 device=tok_t.device)
-                logits, cache = step(model, cache, {"tokens": tok_t[:, i],
-                                                    "pos": pos})
-                pairs.append((logits, full[:, i]))
+            full, _, _ = lm.forward(cfg, model, batch)
+        last, steps, _ = _tf_decode(cfg, model, batch, lp)
     finally:
         for h in hooks:
             h.remove()
-    check(len(seen) == nl * (L - lp_ + 2), "serve: a MoE call was missed")
-    per_run = [torch.stack(seen[j:j + nl]) for j in range(0, len(seen), nl)]
-    want = per_run[0].reshape(nl, B, L, k)
-    got = torch.cat([r.reshape(nl, B, -1, k) for r in per_run[1:]], dim=2)
-    moved = (want != got).any(-1).any(0).cummax(1).values[:, lp_ - 1:]
+    B, L = full.shape[:2]
+    pairs = [(a, full[:, lp - 1 + j]) for j, a in enumerate([last] + steps)]
     diff = torch.stack([(a.float() - b.float()).abs() for a, b in pairs], 1)
     ref = torch.stack([b.float().abs() for _, b in pairs], 1)
-    bad = (diff > tol + tol * ref).sum(-1)                  # [B, 9]
-    alike = ~moved
+    bad = (diff > tol + tol * ref).sum(-1)                  # [B, L - lp + 1]
+    scaled = (diff > tol * (1 + ref.amax(-1, keepdim=True))).sum(-1)
+    rel = diff.norm(dim=-1) / ref.norm(dim=-1)
+    alike = torch.ones_like(bad, dtype=torch.bool)
+    if cfg.family == "moe":
+        nl, k = cfg.n_layers, cfg.moe.top_k
+        check(len(seen) == nl * (L - lp + 2), "teacher-forced: a MoE call "
+              "was missed")
+        per_run = [torch.stack(seen[j:j + nl])
+                   for j in range(0, len(seen), nl)]
+        want = per_run[0].reshape(nl, B, L, k)
+        got = torch.cat([r.reshape(nl, B, -1, k) for r in per_run[1:]],
+                        dim=2)
+        alike = ~(want != got).any(-1).any(0).cummax(1).values[:, lp - 1:]
     return {"max": float(diff.max()), "bad": int(bad.sum()),
             "n": diff.numel(), "pairs": alike.numel(),
             "alike": int(alike.sum()),
             "max_alike": float(diff[alike].max()) if alike.any() else 0.0,
-            "bad_alike": int(bad[alike].sum())}
+            "bad_alike": int(bad[alike].sum()), "scaled": int(scaled.sum()),
+            "scaled_alike": int(scaled[alike].sum()),
+            "rel": float(rel.max()),
+            "rel_alike": float(rel[alike].max()) if alike.any() else 0.0,
+            "rel_steps": [round(float(r), 5) for r in torch.where(
+                alike, rel, 0).amax(0)],
+            "scale": float(ref.amax(-1).median())}
 
 
 # --------------------------------------------------------------- phase 12 --
@@ -2323,6 +2403,363 @@ def train_chain(mr):
           f"launches {launches}", flush=True)
 
 
+# --------------------------------------------------------------- phase 17 --
+
+# (arch, the prefix of the prompt that the teacher-forced check prefills:
+# a multiple of the family's chunk, RWKV's 16 and Zamba2's 128)
+FAMILIES = (("rwkv6_7b", 240), ("zamba2_2p7b", 128), ("gemma_2b", 248),
+            ("qwen1p5_0p5b", 248), ("starcoder2_15b", 248), ("yi_34b", 248),
+            ("internvl2_1b", 248), ("musicgen_large", 248),
+            ("kimi_k2_1t_a32b", 248))
+FAM_B, FAM_PROMPT, FAM_GEN = 8, 256, 16
+BF16_BYTES, F32_BYTES = 72e9, 60e9   # parameter bytes a cut may hold
+BF16_DRIFT = 0.15     # bf16 decode vs forward, relative L2 of a position
+
+
+def _cut(cfg, budget: float, width: int):
+    """(the most layers, whole groups for hybrid, whose parameters of
+    ``width`` bytes fit in ``budget`` bytes; their parameter count)."""
+    from repro_torch.models import lm
+    defs = lm.build_defs(cfg)
+    per_layer = sum(int(np.prod(d.shape[1:])) for n, d in defs.items()
+                    if n.startswith("layers/"))
+    rest = sum(int(np.prod(d.shape)) for n, d in defs.items()
+               if not n.startswith("layers/"))
+    n = max(0, min(cfg.n_layers, int((budget / width - rest) // per_layer)))
+    if cfg.family == "hybrid":
+        n -= n % cfg.hybrid.attn_every
+    return n, rest + n * per_layer
+
+
+def _free(base: int):
+    """Collect and empty the cache between models; nothing of the last
+    model may stay allocated beyond the ``base`` bytes held before."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - base
+    check(held < 0.5e9, f"families: {held / 1e9:.2f} GB more allocated "
+          "than when the phase started, between models")
+
+
+def _family_model(arch, budget, width, dtype):
+    """The registry's config of ``arch`` in ``dtype``, cut to the most
+    layers that ``budget`` holds, with random parameters from the seeded
+    generator: (cfg, parameters, parameter count, the cut as text)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.models import lm
+    full = get(arch)
+    n, count = _cut(full, budget, width)
+    cfg = dataclasses.replace(full, n_layers=n, dtype=dtype)
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED))
+    check(sum(t.numel() for t in params.values()) == count,
+          f"families: {arch} parameter count")
+    return cfg, params, count, f"{n} of {full.n_layers} layers"
+
+
+def _family_prompt(cfg):
+    """The serving prompt as ``serve`` draws it from the seed, on the card,
+    and the audio stub's decode frames (None for the others)."""
+    from repro_torch.launch.serve import prompt_batch
+    rng = np.random.default_rng(SEED)
+    prompt = {k: torch.as_tensor(v, device="cuda") for k, v in
+              prompt_batch(cfg, rng, FAM_B, FAM_PROMPT).items()}
+    frames = None
+    if cfg.frontend == "audio_stub":
+        frames = torch.as_tensor(rng.standard_normal(
+            (FAM_B, FAM_GEN - 1, cfg.d_model)), device="cuda")
+    return prompt, frames
+
+
+def _prefill_ids(cfg, model, prompt, frames):
+    """(layer 0's flat expert ids on a prefill of ``prompt``, its
+    capacity), as route() draws them from that layer's MoE input."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import route
+    captured = []
+    hook = model.layers[0].moe.register_forward_pre_hook(
+        lambda mod, args: captured.append((args[0].clone(), args[1])))
+    try:
+        generate(cfg, model, prompt, 1, "cuda", frames)
+    finally:
+        hook.remove()
+    x, cap = captured[0]
+    lp = model.layers[0].moe.weights()
+    with torch.inference_mode():
+        plan = route(rms_norm(x, lp["mlp_norm"], cfg.norm_eps).reshape(
+            -1, cfg.d_model), lp["router"], cfg.moe, cap)
+    return plan["ids"].reshape(-1).contiguous(), cap
+
+
+def family_serve(mr, arch, lp, smi, base):
+    """(a) ``generate`` at full width in bf16 and (b) teacher-forced
+    decode against the full forward, in bf16 at 5e-2 and in float32 at
+    1e-4 at the deepest cut that ~60 GB of float32 parameters hold.  For
+    the ``moe`` family (Kimi-K2), the routing plan on every layer's real
+    streams, one moe_plan launch per MoE layer per forward, and the
+    plan's time on the prefill stream.  Returns this configuration's
+    numbers."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.launch.serve import generate, pad_cache
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import lm
+    from repro_torch.models.decode import cache_spec
+
+    t0 = time.perf_counter()
+    _free(base)
+    cfg, params, count, cut = _family_model(arch, BF16_BYTES, 2, "bfloat16")
+    model = lm.LM(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()      # serving's peak, not the draw
+    prompt, frames = _family_prompt(cfg)
+    generate(cfg, model, prompt, 2, "cuda", frames)           # warm-up
+    _reset(mr)
+    out = generate(cfg, model, prompt, FAM_GEN, "cuda", frames)
+    launches = dict(mr.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    moe = cfg.family == "moe"
+    want = {"moe_plan": cfg.n_layers * FAM_GEN if moe else 0, "moe_route": 0}
+    check(launches == want, f"families: {arch} launches {launches}, "
+          f"expected {want}")
+    toks = out.tokens
+    check(toks.shape == (FAM_B, FAM_GEN) and bool(((toks >= 0) & (
+        toks < cfg.vocab_size)).all()), f"families: {arch} bad tokens")
+    check(bool(torch.isfinite(out.logits).all()),
+          f"families: {arch} non-finite logits")
+    check(torch.equal(out.logits.argmax(-1).to(torch.int32), toks),
+          f"families: {arch} tokens are not the logits' argmax")
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+    with torch.inference_mode():
+        cache = prefill(model, prompt)[1]
+        spec = cache_spec(cfg, FAM_B, FAM_PROMPT)
+        check({n: (tuple(t.shape), t.dtype) for n, t in cache.items()} == {
+            n: (s_, d) for n, (s_, d, _) in spec.items()},
+            f"families: {arch} prefill cache differs from cache_spec")
+        # where the time goes: a prefill and one decode step, profiled
+        _profile(f"families: {cfg.name} prefill {FAM_B} x {FAM_PROMPT}",
+                 lambda: prefill(model, prompt), top=4)
+        cache = pad_cache(cache, 1)
+        x = dict(pos=torch.full((FAM_B,), FAM_PROMPT, dtype=torch.int32,
+                                device="cuda"))
+        x.update({"frames": frames[:, 0]} if frames is not None else
+                 {"tokens": out.tokens[:, 0]})
+        _profile(f"families: {cfg.name} decode step, batch {FAM_B}",
+                 lambda: step(model, cache, x), top=4)
+    del cache, x
+    decode_ms = out.decode_seconds * 1e3 / (FAM_GEN - 1)
+    row = dict(arch=arch, family=cfg.family, cut=cut, params=count,
+               prefill_ms=out.prefill_seconds * 1e3, decode_ms=decode_ms,
+               peak_gb=peak / 1e9, launches=launches)
+    what = ("frames" if cfg.frontend == "audio_stub" else
+            "patches + tokens" if cfg.frontend == "vision_stub" else "tokens")
+    print(f"families: {cfg.name} bf16, {cut}, {count:,} parameters; "
+          f"{FAM_B} requests x {FAM_PROMPT} prompt positions ({what}) x "
+          f"{FAM_GEN} generated: prefill {row['prefill_ms']:.3f} ms, decode "
+          f"{decode_ms:.3f} ms a step; peak memory {row['peak_gb']:.2f} GB; "
+          f"launches {launches} | {smi}", flush=True)
+
+    bf_model, bf_cfg = model, cfg
+    if moe:
+        drops = _route_streams(mr, cfg, model, prompt, f"families: {arch}",
+                               frames)[1]
+        # the plan timed on layer 0's prefill stream
+        ids, cap = _prefill_ids(cfg, model, prompt, frames)
+        E, k = cfg.moe.n_experts, cfg.moe.top_k
+        n = ids.numel()
+        ms = time_cuda(lambda: mr.route_plan_call(ids, E, cap, k), 200, 11)
+        plain_ms = time_cuda(lambda: mr.route_plan_plain(ids, E, cap, k), 50,
+                             5)
+        lib_ms = time_cuda(lambda: torch.argsort(ids, stable=True), 200, 11)
+        bnd, by = bound_ms(4 * n + 13 * n, n)
+        row["plan"] = dict(n=n, capacity=cap, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                           drops=drops)
+        print(f"families: {cfg.name} moe_plan and moe_route equal to plain "
+              f"on the {2 * cfg.n_layers} real streams (N={n} prefill, "
+              f"{FAM_B * k} decode), plan invariants hold; dropped per "
+              f"layer: prefill {drops['prefill']}, decode {drops['decode']};"
+              f" the plan at N={n}, capacity {cap}: {ms * 1e3:.2f} us a "
+              f"call, plain {plain_ms * 1e3:.2f} us, torch.argsort(stable) "
+              f"{lib_ms * 1e3:.2f} us, bound {bnd * 1e3:.4f} us ({by})",
+              flush=True)
+        # (b) with nothing dropped, as phase 11 (c) does
+        bf_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=E / k))
+        bf_model = lm.LM(bf_cfg, params)
+    # bf16, every family: each position's logit vector within relative L2
+    # BF16_DRIFT of the full forward's; K/V-state families also within
+    # 5e-2 of each position's logit scale (1 + its largest |logit|).
+    # Elementwise rtol/atol 5e-2 is reported, not gated: over 16-128
+    # decode steps the reference itself exceeds it (JAX on the CPU, smoke
+    # configs at these lengths: Zamba2 5 of 264,192 logits, RWKV6 4 of
+    # 34,816).  RWKV's and Mamba2's states carry bf16 rounding forward
+    # through their decays: the drift grows over the first steps and
+    # levels off, in the reference as in the port
+    # (tests/test_torch_families.py::test_bf16_decode_drift_matches_jax).
+    # Correctness of the caches is the float32 gate's
+    tf = _teacher_forced(bf_cfg, bf_model, prompt, lp, 5e-2)
+    ok = (tf["rel_alike"] <= BF16_DRIFT and 2 * tf["alike"] >= tf["pairs"]
+          and (cfg.family in ("rwkv", "hybrid") or tf["scaled_alike"] == 0))
+    row["bf16"] = tf
+    print(f"families: {cfg.name} (b) bf16 teacher-forced decode of "
+          f"positions {lp}-{FAM_PROMPT - 1} against the full forward: max "
+          f"abs diff {tf['max']:.3e}, {tf['scaled']} of {tf['n']} logits "
+          f"beyond 5e-2 of their position's scale ({tf['bad']} beyond "
+          f"rtol/atol 5e-2); largest relative L2 difference of a "
+          f"position {tf['rel']:.3e} (gate {BF16_DRIFT}), by step "
+          f"{tf['rel_steps']}; median position scale {tf['scale']:.3f}" + (
+              f"; {tf['alike']} of {tf['pairs']} (row, position) pairs "
+              f"routed alike, max there {tf['max_alike']:.3e}, "
+              f"{tf['scaled_alike']} beyond the scaled 5e-2 "
+              f"({tf['bad_alike']} beyond rtol/atol)" if moe else ""),
+          flush=True)
+    row["failures"] = [] if ok else [
+        f"{arch} (b) bf16 teacher-forced decode differs from the full "
+        f"forward: {tf}"]
+    del params, model, bf_model, out, prompt, frames
+    _free(base)
+
+    if _cut(get(arch), F32_BYTES, 4)[0] == 0:
+        print(f"families: {cfg.name} (b) float32: one layer's float32 "
+              "parameters exceed 60 GB; its float32 check is (c)",
+              flush=True)
+        row["f32"] = None
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg32, params, count32, cut32 = _family_model(arch, F32_BYTES, 4,
+                                                      "float32")
+        prompt, _ = _family_prompt(cfg32)
+        tf = _teacher_forced(cfg32, lm.LM(cfg32, params), prompt, lp, 1e-4)
+        row["f32"] = dict(tf, cut=cut32)
+        print(f"families: {cfg.name} (b) float32, {cut32} ({count32:,} "
+              f"parameters): teacher-forced decode against the full "
+              f"forward, max abs diff {tf['max']:.3e}, {tf['bad']} of "
+              f"{tf['n']} logits beyond rtol/atol 1e-4; largest relative "
+              f"L2 difference of a position {tf['rel']:.3e}", flush=True)
+        if tf["bad"]:
+            row["failures"].append(f"{arch} (b) float32 teacher-forced "
+                                   f"decode differs from the full forward: "
+                                   f"{tf}")
+        del params, prompt
+        _free(base)
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def family_chain(mr):
+    """(c) The smoke config of every architecture in float32, one set of
+    converted parameters on the card and through the CPU port: the
+    forward's logits and every cache entry, the prefill and teacher-
+    forced decode logits and the final cache, at 1e-4; one
+    ``make_train_step``: the loss within 1e-5, every gradient within
+    rtol 1e-4 / atol 1e-6, or 1e-5 of the leaf's largest gradient where
+    that is more (as tests/test_torch_families.py holds them)."""
+    import dataclasses
+
+    from repro_torch.common.types import ParallelConfig, TrainConfig
+    from repro_torch.configs.registry import ARCHS, get_smoke
+    from repro_torch.convert import convert_params
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import grads_of, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    par = ParallelConfig(remat="none", microbatch=1, moment_dtype="float32")
+    report = []
+    for arch in ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+        flat = {n: t.numpy() for n, t in lm.init_params(
+            cfg, torch.Generator().manual_seed(SEED)).items()}
+        batch = SyntheticLM(cfg, 32, 2).batch(0)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = convert_params(flat, cfg, dev)
+            model = lm.LM(cfg, params)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+                 if k != "labels"}
+            with torch.inference_mode():
+                logits, cache, _ = lm.forward(cfg, model, b,
+                                              collect_cache=True)
+            last, steps, dcache = _tf_decode(cfg, model, b, 16)
+            _, grads = grads_of(cfg, par, params, batch)
+            _reset(mr)
+            _, _, m = make_train_step(cfg, par, TrainConfig(warmup_steps=10))(
+                params, adamw.init_state(params, "float32"), batch)
+            cpu = lambda d: {n: t.cpu() for n, t in d.items()}
+            out[dev] = dict(logits=logits.cpu(), cache=cpu(cache),
+                            decode=torch.stack([last] + steps, 1).cpu(),
+                            dcache=cpu(dcache), loss=float(m["loss"]),
+                            grads=cpu(grads), launches=dict(mr.LAUNCHES))
+        g, c = out["cuda"], out["cpu"]
+        worst = 0.0
+        for what in ("logits", "decode"):
+            torch.testing.assert_close(g[what], c[what], rtol=1e-4,
+                                       atol=1e-4, msg=f"(c) {arch} {what}")
+            worst = max(worst, float((g[what] - c[what]).abs().max()))
+        for what in ("cache", "dcache"):
+            for n, t in c[what].items():
+                torch.testing.assert_close(g[what][n], t, rtol=1e-4,
+                                           atol=1e-4,
+                                           msg=f"(c) {arch} {what} {n}")
+        check(abs(g["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
+              f"families: (c) {arch} loss {g['loss']} against the CPU "
+              f"port's {c['loss']}")
+        gworst = 0.0
+        for n, t in c["grads"].items():
+            atol = max(1e-6, 1e-5 * float(t.abs().max()))
+            torch.testing.assert_close(g["grads"][n], t, rtol=1e-4,
+                                       atol=atol, msg=f"(c) {arch} grad {n}")
+            gworst = max(gworst, float((g["grads"][n] - t).abs().max()))
+        want = {"moe_plan": cfg.n_layers if cfg.family == "moe" else 0,
+                "moe_route": 0}
+        check(g["launches"] == want, f"families: (c) {arch} train step "
+              f"launches {g['launches']}, expected {want}")
+        report.append(f"{arch} logits {worst:.2e}, loss {g['loss']:.7f} / "
+                      f"{c['loss']:.7f}, gradients {gworst:.2e}")
+    print("families: (c) smoke configs in float32, card against the CPU "
+          "port (forward, caches, prefill + 16 teacher-forced decode "
+          "steps at 1e-4; a train step's loss at 1e-5, gradients at rtol "
+          "1e-4): " + "; ".join(report), flush=True)
+
+
+def families(mr, smi):
+    """Phase 17: every other family of the registry served at full width
+    (one configuration after another, each freed before the next), then
+    the smoke configs on the card against the CPU port.  Returns the
+    serving rows."""
+    import gc
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the earlier phases' host objects (CPU port clusters, stores, WAL
+    # records) stay out of the collector's passes over the decode loops
+    gc.collect()
+    gc.freeze()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    print(f"families: {base / 1e9:.2f} GB allocated before the "
+          f"phase; {gc.get_freeze_count():,} host objects frozen",
+          flush=True)
+    rows = [family_serve(mr, arch, lp, smi, base) for arch, lp in FAMILIES]
+    failures = [f for r in rows for f in r["failures"]]
+    check(not failures, "families: " + " | ".join(failures))
+    family_chain(mr)
+    print("families: " + "; ".join(
+        f"{r['arch']} ({r['cut']}) prefill {r['prefill_ms']:.3f} ms, "
+        f"decode {r['decode_ms']:.3f} ms/step, peak {r['peak_gb']:.2f} GB, "
+        f"{r['seconds']:.1f} s" for r in rows), flush=True)
+    print(f"families: phase 17 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    gc.unfreeze()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -2384,6 +2821,12 @@ def main():
     kernels[3]["train"] = train
     launcher_restart(mr)
     train_chain(mr)
+    del gpu, cpu, hi, p, scan_gpu       # the P4DB clusters: done with
+    fam = families(mr, smi)
+    kimi = next(r for r in fam if r["family"] == "moe")
+    kernels[3]["families"] = dict(arch=kimi["arch"], cut=kimi["cut"],
+                                  launches=kimi["launches"]["moe_plan"],
+                                  plan=kimi["plan"])
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -71,8 +71,8 @@ def convert_params(flat: Mapping[str, np.ndarray], cfg, device=None):
     """The reference's model parameters as the port's.
 
     flat: ``{name: array}`` under ``repro.models.params.flatten`` names
-    (``"embed"``, ``"layers/wq"``, ...), e.g. of ``repro.models.lm.
-    init_params``.  The mapping is the identity on names and shapes: the
+    of any family (``"embed"``, ``"layers/wq"``, ``"layers/tm/wr"``,
+    ``"shared/wq"``, ...), e.g. of ``repro.models.lm.init_params``.  The mapping is the identity on names and shapes: the
     port keeps the reference's flat names and its ``layers/*`` tensors
     stacked over layers (``repro_torch.models.lm.LM`` slices them per
     layer without copying).  Each tensor is cast to its ``ParamDef``'s

@@ -33,8 +33,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig,
 
     Gradient accumulation: the batch's leading dim is split into
     parallel.microbatch chunks run in turn; grads are accumulated in fp32
-    (bf16 for the MoE giants to halve the buffer), then divided by the
-    count, as in the reference."""
+    (bf16 for the ``moe`` family's giants to halve the buffer), then
+    divided by the count, as in the reference."""
     mb = max(parallel.microbatch, 1)
     accum_dtype = torch.bfloat16 if cfg.family == "moe" else torch.float32
 

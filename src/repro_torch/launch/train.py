@@ -1,6 +1,7 @@
-"""Training launcher (counterpart of ``repro/launch/train.py``, ``moe``
-family): checkpoint/restart, deterministic step-indexed data, straggler
-detection, async checkpointing, on one device.
+"""Training launcher (counterpart of ``repro/launch/train.py``), for every
+family of the registry: checkpoint/restart, deterministic step-indexed
+data (the stubs' patches and frames included), straggler detection, async
+checkpointing, on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch qwen3-moe-235b-a22b --steps 50 --batch 8 --seq 128 --smoke \

@@ -1,7 +1,7 @@
 """Core transformer layers (counterpart of ``repro/models/layers.py``):
 RMSNorm, RoPE, chunked (online-softmax) causal attention, GQA decode
-attention, the gated MLP.  Plain functions on tensors, in the reference's
-order of casts.  Where the reference asks XLA for a float32 product of
+attention, the gated and the plain (biased) MLP.  Plain functions on
+tensors, in the reference's order of casts.  Where the reference asks XLA for a float32 product of
 bf16 operands (``preferred_element_type=jnp.float32``), the operands are
 cast to float32 first: a bf16 x bf16 product is exact in float32, so the
 arithmetic is the same."""
@@ -52,7 +52,9 @@ def chunked_causal_attention(q, k, v, q_chunk, kv_chunk, causal_offset=0):
     q: [B, Lq, H, D]   k/v: [B, Lk, G, D]  with H = G * rep (GQA).
     causal_offset: position of q[0] minus position of k[0].
     Returns [B, Lq, H, D] float32.  Like the reference, every (q block,
-    kv block) pair is computed and masked, none skipped."""
+    kv block) pair is computed and masked, none skipped.  The reference's
+    ``unroll`` (a loop-free form for its dry-run, equal in value) has no
+    counterpart: the port ignores ``cfg.unroll``."""
     B, Lq, H, D = q.shape
     _, Lk, G, _ = k.shape
     rep = H // G
@@ -139,3 +141,9 @@ def gated_mlp(x, w_gate, w_up, w_down, act):
     g = _act(x @ w_gate, act)
     u = x @ w_up
     return (g * u.to(g.dtype)).to(x.dtype) @ w_down
+
+
+def plain_mlp(x, w_up, b_up, w_down, b_down, act):
+    """The biased 2-matrix MLP (StarCoder2, MusicGen)."""
+    h = _act(x @ w_up + b_up, act)
+    return h.to(x.dtype) @ w_down + b_down

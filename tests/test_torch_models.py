@@ -321,14 +321,6 @@ def test_init_params_styles_and_determinism():
         "a": {"b": 1}, "c": 2}
 
 
-@pytest.mark.parametrize("arch", ["yi_34b", "rwkv6_7b", "zamba2_2p7b",
-                                  "internvl2_1b", "kimi_k2_1t_a32b"])
-def test_unported_configs_raise(arch):
-    """Other families, and shared experts, name the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TLM.build_defs(get_smoke(arch))
-
-
 def test_serve_defaults_to_cuda(monkeypatch):
     """Without --device the launcher asks for cuda: it raises where there
     is none and never falls back to the CPU."""
