@@ -104,6 +104,22 @@ Phases (each one exits non-zero on failure):
               (forward, caches, decode, a train step's loss and
               gradients).
 
+18. sharding — the sharding and dry-run group: (a) the batched moe_plan
+              (one block per shard) at 2 x 16,384, 4 x 8,192 and 8 x
+              4,096 ids over 128 experts and 2 x 16,384 over 384, bit for
+              bit against its plain version and S single launches, timed
+              beside torch.argsort; (b) phase 16's configuration with
+              ``moe_arbitration_shards = 2``, 3 steps, one batched plan
+              launch per layer per forward, the plans against plain, step
+              time, peak memory and drops beside S = 1; (c) remat none /
+              full / dots at full width, gradients equal bit for bit
+              under deterministic algorithms; (d) the smoke config at
+              capacity factor 1.0 with shards, token motion and dots, card
+              against the CPU port; (e) a one-rank NCCL mesh: the forward
+              on DTensor parameters and ``compressed_mean``; (f) the
+              dry-run of three cells in subprocesses started after (c)
+              (the port's fake-mesh estimates).
+
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
 of JAX or of the JAX package ``repro``.
@@ -111,6 +127,7 @@ of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -130,8 +147,14 @@ FP32_OPS_PER_S = 67e12         # H100 SXM non-tensor rate (data sheet)
 S, R, K, B = 24, 65536, 16, 256  # benchmarks/common.py SWITCH; B per group
 
 
+CHILDREN = []          # subprocesses this script starts (phase 18 (f))
+
+
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    for p in CHILDREN:
+        if p.poll() is None:
+            p.kill()
     sys.exit(1)
 
 
@@ -2148,7 +2171,7 @@ def train_path(mr, smi):
           "the phase")
     cfg = dataclasses.replace(get(MOE_ARCH), n_layers=TRAIN_LAYERS)
     plan = make_plan(cfg, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_B),
-                     ParallelConfig(remat="none", microbatch=1))
+                     None, ParallelConfig(remat="none", microbatch=1))
     check(plan.microbatch == 1 and plan.parallel.moment_dtype == "int8",
           f"train: plan {plan.describe()}")
     tc = TrainConfig(warmup_steps=10)
@@ -2760,6 +2783,515 @@ def families(mr, smi):
     return rows
 
 
+# --------------------------------------------------------------- phase 18 --
+
+# (shards, ids per shard, experts): Qwen3-MoE training's streams under
+# moe_arbitration_shards = 2, 4, 8 (8 x 512 tokens x top-8), and one at
+# Kimi-K2's 384 experts
+PLAN_SHARDS = ((2, 16384, 128), (4, 8192, 128), (8, 4096, 128),
+               (2, 16384, 384))
+DRY_CELLS = (("qwen3-moe-235b-a22b", "train_4k", "single"),
+             ("yi-34b", "decode_32k", "single"),
+             ("zamba2-2.7b", "long_500k", "multi"))
+
+
+def _cap_l(capacity: int, shards: int) -> int:
+    """moe_ffn_sharded's per-shard capacity."""
+    return max(8, (-(-capacity // shards) // 8) * 8 + 8)
+
+
+def _capture_moe(lm):
+    """Wrap ``lm.moe_ffn`` and ``lm.moe_ffn_sharded`` so that each call's
+    routing plan is kept; returns (plans, restore)."""
+    plans, saved = [], {}
+    for name in ("moe_ffn", "moe_ffn_sharded"):
+        saved[name] = orig = getattr(lm, name)
+
+        def wrapped(*args, _orig=orig, **kwargs):
+            y, plan = _orig(*args, **kwargs)
+            plans.append({k: v.detach() for k, v in plan.items()})
+            return y, plan
+
+        setattr(lm, name, wrapped)
+    return plans, lambda: [setattr(lm, n, o) for n, o in saved.items()]
+
+
+def _shard_plans_equal(mr, plan, shards, E, cap, k, where):
+    """A captured per-shard plan ([S * n] fields, each shard's positions
+    relative to it) against the plain plan of each shard; returns the
+    dropped entries."""
+    ids = plan["ids"].reshape(shards, -1).to(torch.int32).contiguous()
+    want = mr.route_plan_plain(ids, E, cap, k)
+    for f, w in zip(("order", "slot", "admit", "tok"), want):
+        check(torch.equal(plan[f].reshape(shards, -1), w),
+              f"{where}: the per-shard plan's {f} differs from plain")
+    for s in range(shards):
+        _plan_checks({"ids": ids[s], **{f: plan[f].reshape(shards, -1)[s]
+                                        for f in ("order", "slot",
+                                                  "admit")}},
+                     E, cap, f"{where} shard {s}")
+    return int((~plan["admit"]).sum())
+
+
+def batched_plan_checks(mr):
+    """(a) The batched moe_plan (one block per shard) at PLAN_SHARDS on
+    skewed ids (half the entries on 4 hot experts): bit for bit against
+    its plain version and against S launches of the single-stream plan,
+    the plan's invariants per shard, one launch a call; then timed with
+    CUDA events beside S single launches, the plain version and
+    torch.argsort on the same [S, n] ids."""
+    from repro_torch.configs.registry import get
+    from repro_torch.models.moe import capacity_for
+    rng = np.random.default_rng(SEED + 180)
+    rows = []
+    for S, n, E in PLAN_SHARDS:
+        hot = rng.integers(0, E, 4)
+        ids = np.where(rng.random((S, n)) < 0.5,
+                       hot[rng.integers(0, 4, (S, n))],
+                       rng.integers(0, E, (S, n))).astype(np.int32)
+        t = torch.tensor(ids, device="cuda")
+        moe = dataclasses.replace(get(MOE_ARCH).moe, n_experts=E)
+        k = moe.top_k
+        cap = _cap_l(capacity_for(S * n // k, moe), S)
+        before = dict(mr.LAUNCHES)
+        got = mr.route_plan_call(t, E, cap, k)
+        launched = {x: mr.LAUNCHES[x] - before[x] for x in before
+                    if mr.LAUNCHES[x] != before[x]}
+        check(launched == {"moe_plan": 1}, f"sharding: (a) S={S} n={n} "
+              f"launched {launched}, expected one moe_plan")
+        want = mr.route_plan_plain(t, E, cap, k)
+        single = [t[s].contiguous() for s in range(S)]
+        ones = [mr.route_plan_call(r, E, cap, k) for r in single]
+        torch.cuda.synchronize()
+        drops = 0
+        for f, (a, b) in enumerate(zip(got, want)):
+            check(a.shape == (S, n) and a.dtype == b.dtype
+                  and torch.equal(a, b), f"sharding: (a) S={S} n={n} E={E}"
+                  f": batched plan field {f} differs from plain")
+            for s in range(S):
+                check(torch.equal(a[s], ones[s][f]), f"sharding: (a) S={S} "
+                      f"shard {s}: batched plan differs from a single launch")
+        for s in range(S):
+            drops += _plan_checks({"ids": t[s], "order": got[0][s],
+                                   "slot": got[1][s], "admit": got[2][s]},
+                                  E, cap, f"(a) S={S} shard {s}")
+        ms = time_cuda(lambda: mr.route_plan_call(t, E, cap, k), 50, 11)
+        singles_ms = time_cuda(lambda: [mr.route_plan_call(r, E, cap, k)
+                                        for r in single], 20, 11)
+        plain_ms = time_cuda(lambda: mr.route_plan_plain(t, E, cap, k), 3, 5)
+        lib_ms = time_cuda(lambda: torch.argsort(t, dim=-1, stable=True), 50,
+                           11)
+        bnd, by = bound_ms(17 * S * n, S * n)
+        rows.append(dict(shards=S, n=n, n_experts=E, capacity=cap, ms=ms,
+                         singles_ms=singles_ms, plain_ms=plain_ms,
+                         argsort_ms=lib_ms, bound_ms=bnd, bound_by=by,
+                         dropped=drops))
+    print("sharding: (a) batched moe_plan equal to plain and to S single "
+          "launches bit for bit, one launch a call: " + "; ".join(
+              f"S={r['shards']} x {r['n']} ids, E={r['n_experts']}, C_l="
+              f"{r['capacity']}: {r['ms'] * 1e3:.2f} us/call (S single "
+              f"launches {r['singles_ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, torch.argsort(stable) "
+              f"{r['argsort_ms'] * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.5f} us ({r['bound_by']}); "
+              f"{r['dropped']} dropped)" for r in rows), flush=True)
+    return rows
+
+
+def sharded_train(mr, smi, train16):
+    """(b) Phase 16's configuration with moe_arbitration_shards = 2: 3
+    steps of 8 x 512 tokens, each layer's plan one batched moe_plan
+    launch of 2 x 16,384 ids (no moe_route); the plans against the plain
+    per-shard plans; step time, peak memory and dropped entries beside
+    S = 1.  (c) remat none / full / dots on the same parameters and
+    batch: forward + backward time and peak memory of each, the
+    gradients of full and dots equal to none's bit for bit under
+    deterministic algorithms.  Returns (the sharded path's numbers, the
+    remat rows)."""
+    from repro_torch.common.types import (ParallelConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import grads_of, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import make_plan
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get(MOE_ARCH), n_layers=TRAIN_LAYERS)
+    E, k, S = cfg.moe.n_experts, cfg.moe.top_k, 2
+    par = ParallelConfig(remat="none", microbatch=1,
+                         moe_arbitration_shards=S)
+    plan = make_plan(cfg, ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_B),
+                     None, par)
+    check(plan.parallel.moment_dtype == "int8" and plan.microbatch == 1,
+          f"sharding: plan {plan.describe()}")
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED))
+    opt = adamw.init_state(params, "int8")
+    data = SyntheticLM(cfg, TRAIN_SEQ, TRAIN_B)
+    step_fn = make_train_step(cfg, plan.parallel, TrainConfig(warmup_steps=10))
+    secs, losses, per_step = [], [], []
+    for s in range(3):
+        batch = data.batch(s)
+        torch.cuda.synchronize()
+        _reset(mr)
+        t1 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        per_step.append(dict(mr.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated()
+    want = {"moe_plan": cfg.n_layers, "moe_route": 0}
+    check(all(p == want for p in per_step), f"sharding: (b) launches per "
+          f"step {per_step}, expected {want}: one batched moe_plan a layer")
+    check(all(np.isfinite(losses)), f"sharding: (b) losses {losses}")
+    launches = sum(p["moe_plan"] for p in per_step)
+
+    b0 = {n: torch.as_tensor(v, device="cuda")
+          for n, v in data.batch(3).items()}
+    capacity = capacity_for(TRAIN_B * TRAIN_SEQ, cfg.moe)
+    cap_l = _cap_l(capacity, S)
+    drops = {}
+    for shards in (S, 1):
+        plans, restore = _capture_moe(lm)
+        try:
+            with torch.no_grad():
+                lm.loss_fn(cfg, params, b0, dataclasses.replace(
+                    par, moe_arbitration_shards=shards))
+        finally:
+            restore()
+        check(len(plans) == cfg.n_layers, "sharding: a MoE call was missed")
+        drops[shards] = [
+            _shard_plans_equal(mr, p, shards, E, cap_l if shards > 1
+                               else capacity, k, f"(b) S={shards} layer {i}")
+            for i, p in enumerate(plans)]
+    plans, restore = _capture_moe(lm)
+    try:
+        with torch.no_grad():
+            lm.loss_fn(cfg, params, b0, par)
+    finally:
+        restore()
+    ids = plans[0]["ids"].reshape(S, -1).to(torch.int32).contiguous()
+    del plans
+    ms = time_cuda(lambda: mr.route_plan_call(ids, E, cap_l, k), 50, 11)
+    plain_ms = time_cuda(lambda: mr.route_plan_plain(ids, E, cap_l, k), 3,
+                         5)
+    lib_ms = time_cuda(lambda: torch.argsort(ids, dim=-1, stable=True), 50,
+                       11)
+    bnd, by = bound_ms(17 * ids.numel(), ids.numel())
+    step_ms = statistics.median(secs[1:]) * 1e3
+    print(f"sharding: (b) {cfg.name} {cfg.n_layers} layers, 8 x 512 tokens, "
+          f"moe_arbitration_shards={S} (C_l {cap_l} per shard, C "
+          f"{capacity} global): losses {', '.join(f'{x:.6f}' for x in losses)}"
+          f"; step times {', '.join(f'{x * 1e3:.3f}' for x in secs)} ms, "
+          f"median of steps 1-2 {step_ms:.3f} ms (S=1, phase 16: "
+          f"{train16['step_ms']:.3f} ms); peak {peak / 1e9:.2f} GB (S=1: "
+          f"{train16['peak_gb']:.2f} GB); dropped per layer {drops[S]} (S=1 "
+          f"on the same batch: {drops[1]}); launches per step "
+          f"{per_step[0]}; the plan on layer 0's real 2 x "
+          f"{ids.shape[1]} ids {ms * 1e3:.2f} us/call, plain "
+          f"{plain_ms * 1e3:.2f} us, torch.argsort {lib_ms * 1e3:.2f} us, "
+          f"bound {bnd * 1e3:.5f} us ({by}) | {smi}",
+          flush=True)
+    sharded = dict(launches=launches, shards=S, n=int(ids.shape[1]),
+                   capacity=cap_l, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bnd,
+                   bound_by=by, step_ms=step_ms, peak_gb=peak / 1e9,
+                   dropped=drops[S], dropped_global=drops[1], losses=losses)
+    del opt, step_fn
+    torch.cuda.empty_cache()
+
+    # (c) remat modes, deterministic: the gradients of one forward +
+    # backward, none's kept on the host
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    remat_rows, ref = [], None
+    try:
+        for mode in ("none", "full", "dots"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            loss, grads = grads_of(cfg, ParallelConfig(
+                remat=mode, microbatch=1), params, b0)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            mpeak = torch.cuda.max_memory_allocated()
+            if ref is None:
+                ref = (float(loss), {n: g.cpu() for n, g in grads.items()})
+                same = len(grads)
+            else:
+                same = sum(torch.equal(g.cpu(), ref[1][n])
+                           for n, g in grads.items())
+                check(float(loss) == ref[0] and same == len(grads),
+                      f"sharding: (c) remat={mode}: loss {float(loss)} / "
+                      f"{ref[0]}, {same} of {len(grads)} gradients equal "
+                      "to remat=none's bit for bit")
+            remat_rows.append(dict(remat=mode, ms=sec * 1e3,
+                                   peak_gb=mpeak / 1e9, equal=same))
+            del grads, loss
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    print("sharding: (c) remat at full width, forward + backward of 8 x 512 "
+          "tokens under deterministic algorithms, gradients of full and "
+          "dots equal to none's bit for bit: " + "; ".join(
+              f"{r['remat']} {r['ms']:.3f} ms, peak {r['peak_gb']:.2f} GB"
+              for r in remat_rows) + f" | {smi}", flush=True)
+    del params, ref
+    torch.cuda.empty_cache()
+    return sharded, remat_rows
+
+
+def sharding_chain(mr):
+    """(d) The smoke config at capacity factor 1.0 in float32, one set of
+    converted parameters on the card and through the CPU port, with
+    moe_arbitration_shards = 2, then moe_token_motion, then remat dots:
+    the loss within 1e-5, gradients within rtol 1e-4 / atol 1e-6, the
+    routing plans exactly."""
+    from repro_torch.common.types import ParallelConfig
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.convert import convert_params
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import grads_of
+    from repro_torch.models import lm
+
+    cfg = get_smoke(MOE_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.0))
+    flat = {n: t.numpy() for n, t in lm.init_params(
+        cfg, torch.Generator().manual_seed(SEED)).items()}
+    batch = SyntheticLM(cfg, 32, 2).batch(0)
+    report = []
+    for kw in (dict(moe_arbitration_shards=2), dict(moe_token_motion=True),
+               dict(remat="dots")):
+        par = ParallelConfig(**{"remat": "none", "microbatch": 1, **kw})
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = convert_params(flat, cfg, dev)
+            plans, restore = _capture_moe(lm)
+            _reset(mr)
+            try:
+                loss, grads = grads_of(cfg, par, params, batch)
+            finally:
+                restore()
+            out[dev] = (float(loss), {n: g.cpu() for n, g in grads.items()},
+                        [{k: v.cpu() for k, v in p.items()} for p in plans],
+                        dict(mr.LAUNCHES))
+        (lg, gg, pg, launches), (lc, gc, pc, _) = out["cuda"], out["cpu"]
+        check(abs(lg - lc) <= 1e-5 * abs(lc), f"sharding: (d) {kw} loss "
+              f"{lg} against the CPU port's {lc}")
+        worst = 0.0
+        for n, g in gc.items():
+            torch.testing.assert_close(gg[n], g, rtol=1e-4, atol=1e-6,
+                                       msg=f"(d) {kw} grad {n}")
+            worst = max(worst, float((gg[n] - g).abs().max()))
+        check(len(pg) == len(pc) > 0 and all(
+            torch.equal(a[f], b[f]) for a, b in zip(pg, pc)
+            for f in ("order", "slot", "admit", "tok", "ids")),
+            f"sharding: (d) {kw}: the routing plans differ between the card "
+            "and the CPU")
+        check(launches["moe_plan"] >= cfg.n_layers and
+              launches["moe_route"] == 0, f"sharding: (d) {kw} launches "
+              f"{launches}")
+        report.append(f"{kw}: loss {lg:.7f} / {lc:.7f}, gradients max abs "
+                      f"diff {worst:.3e}, {sum(int((~p['admit']).sum()) for p in pg)}"
+                      f" dropped, launches {launches}")
+    print("sharding: (d) smoke config, capacity factor 1.0, float32, card "
+          "against the CPU port (loss 1e-5, gradients rtol 1e-4 / atol "
+          "1e-6, plans exactly): " + "; ".join(report), flush=True)
+
+
+def nccl_mesh(mr):
+    """(e) A one-rank NCCL process group (a FileStore in a temporary
+    directory) and ``make_local_mesh(1, 1)`` on cuda: the smoke
+    parameters distributed by ``param_shardings``, the forward under
+    ``mesh_axes`` with DTensor parameters equal to the plain forward bit
+    for bit; ``compressed_mean`` over the group equal to
+    dequantize(quantize(x)) bit for bit."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.compress import (compressed_mean,
+                                            dequantize_int8, quantize_int8)
+    from repro_torch.parallel.ctx import mesh_axes
+    from repro_torch.parallel.sharding import param_shardings, placements
+
+    cfg = dataclasses.replace(get_smoke(MOE_ARCH), dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED))
+    batch = {n: torch.as_tensor(v, device="cuda")
+             for n, v in SyntheticLM(cfg, 32, 2).batch(0).items()
+             if n != "labels"}
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{d}/store",
+                                                             1),
+                                rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(1, 1, "cuda")
+            specs = param_shardings(cfg, mesh)
+            dparams = {n: distribute_tensor(t, mesh, placements(specs[n],
+                                                                mesh))
+                       for n, t in params.items()}
+            with torch.no_grad():
+                want, _, _ = lm.forward(cfg, params, batch)
+                _reset(mr)
+                with mesh_axes(mesh.mesh_dim_names), implicit_replication():
+                    got, _, _ = lm.forward(cfg, dparams, batch)
+            launches = dict(mr.LAUNCHES)
+            got = got.full_tensor() if hasattr(got, "full_tensor") else got
+            check(torch.equal(got, want), "sharding: (e) the forward with "
+                  "DTensor parameters differs from the plain forward")
+            check(launches["moe_plan"] == cfg.n_layers, f"sharding: (e) "
+                  f"launches {launches}")
+            x = torch.randn(64, 96, generator=torch.Generator(
+                device="cuda").manual_seed(SEED + 1), device="cuda")
+            cm = compressed_mean(x, dist.group.WORLD)
+            cm_mesh = compressed_mean(x, "data", mesh)
+            ref = dequantize_int8(*quantize_int8(x))
+            check(torch.equal(cm, ref) and torch.equal(cm_mesh, ref),
+                  "sharding: (e) compressed_mean over one rank differs from "
+                  "dequantize(quantize(x))")
+        finally:
+            dist.destroy_process_group()
+    print(f"sharding: (e) one-rank NCCL mesh {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}: the forward with DTensor parameters "
+          f"equals the plain forward bit for bit (launches {launches}); "
+          "compressed_mean over the group and over the mesh's data dim "
+          "equals dequantize(quantize(x)) bit for bit; group destroyed",
+          flush=True)
+
+
+def _spec_local_bytes(cfg, shape, mesh_kind, microbatch, moment):
+    """Rank 0's argument bytes of a dry-run cell from ``spec_for`` alone:
+    each dim divided by the product of its axes' sizes."""
+    from repro_torch.launch.specs import cache_specs, input_specs
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as Sh
+    sizes = (dict(pod=2, data=16, model=16) if mesh_kind == "multi"
+             else dict(data=16, model=16))
+
+    def local(meta, spec):
+        n = meta.element_size()
+        for dim, part in zip(meta.shape, tuple(spec) + (None,) * 8):
+            axes = () if part is None else (part if isinstance(part, tuple)
+                                            else (part,))
+            n *= dim // max(1, int(np.prod([sizes[a] for a in axes])))
+        return n
+
+    metas, specs = lm.abstract_params(cfg), Sh.param_shardings(cfg, sizes)
+    total = sum(local(m, specs[n]) for n, m in metas.items())
+    b = input_specs(cfg, shape)
+    bs = Sh.batch_shardings(cfg, shape, sizes)
+    total += sum(local(m, bs[n]) for n, m in b.items())
+    if shape.kind == "train":
+        st = adamw.abstract_state(metas, moment)
+        ss = adamw.state_shardings(specs, sizes, moment)
+        total += st.step.element_size()
+        for f in ("m", "m_scale", "v", "v_scale"):
+            total += sum(local(m, getattr(ss, f)[n])
+                         for n, m in getattr(st, f).items())
+    elif shape.kind == "decode":
+        c = cache_specs(cfg, shape)
+        cs = Sh.cache_shardings(cfg, shape.global_batch, shape.seq_len,
+                                sizes)
+        total += sum(local(m, cs[n]) for n, m in c.items())
+    return total
+
+
+def start_dryrun():
+    """(f) The dry-run of DRY_CELLS, one subprocess per cell, all started
+    together (CPU only: they run beside the untimed (d) and (e)).
+    Returns what ``dryrun_cells`` needs."""
+    out = Path("artifacts") / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "repro_torch.launch.dryrun", "--arch", a,
+                               "--shape", s, "--mesh", m, "--out", str(out)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a, s, m in DRY_CELLS]
+    CHILDREN.extend(procs)
+    return out, procs, time.perf_counter()
+
+
+def dryrun_cells(started):
+    """(f) Waits for the dry-run subprocesses: each must exit 0; prints
+    per-device argument bytes (held equal to the local shards that
+    spec_for gives), flops, collective wire bytes, peak and the roofline
+    terms, the port's fake-mesh estimates."""
+    from repro_torch.common.types import SHAPES_BY_NAME
+    from repro_torch.configs.registry import canonical, get
+
+    out, procs, t0 = started
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    secs = time.perf_counter() - t0
+    rows = []
+    for (a, s, m), p, log in zip(DRY_CELLS, procs, logs):
+        check(p.returncode == 0, f"sharding: (f) dry-run {a} {s} {m} exited "
+              f"{p.returncode}: {log[-3000:]}")
+        rec = json.loads((out / f"{canonical(a)}__{s}__{m}.json")
+                         .read_text())
+        check(rec["status"] == "ok", f"sharding: (f) {a} {s} {m}: {rec}")
+        pd, rf = rec["per_device"], rec["roofline"]
+        want = _spec_local_bytes(get(a), SHAPES_BY_NAME[s], m,
+                                 rec["microbatch"], rec["moment_dtype"])
+        check(pd["argument_bytes"] == want, f"sharding: (f) {a} {s} {m}: "
+              f"argument bytes {pd['argument_bytes']} against the local "
+              f"shards of spec_for {want}")
+        rows.append(dict(cell=f"{a} x {s} x {m}", chips=rec["chips"],
+                         method=rec["cost_method"],
+                         argument_bytes=pd["argument_bytes"],
+                         flops=pd["flops"],
+                         wire_bytes=pd["collective"]["wire_bytes"]["total"],
+                         peak_bytes=pd["peak_bytes"],
+                         compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+                         collective_s=rf["collective_s"],
+                         dominant=rf["dominant"],
+                         fallback_ops=rec.get("fallback_ops")))
+    print(f"sharding: (f) dry-run, 3 cells in {secs:.1f} s beside (d), (e) "
+          "(the port's "
+          "fake-mesh estimates per device, rank 0; argument bytes equal "
+          "to spec_for's local shards): " + "; ".join(
+              f"{r['cell']} ({r['chips']} ranks, {r['method']}): args "
+              f"{r['argument_bytes'] / 1e9:.3f} GB, flops {r['flops']:.4e}, "
+              f"wire {r['wire_bytes']:.4e} B, peak "
+              f"{r['peak_bytes'] / 1e9:.3f} GB, compute "
+              f"{r['compute_s']:.4e} s / memory {r['memory_s']:.4e} s / "
+              f"collective {r['collective_s']:.4e} s ({r['dominant']})"
+              for r in rows), flush=True)
+    return rows
+
+
+def sharding(mr, smi, train16):
+    """Phase 18: the sharding and dry-run group.  Returns the moe_route
+    entry's ``sharded`` numbers."""
+    t0 = time.perf_counter()
+    rows = batched_plan_checks(mr)
+    sharded, remat_rows = sharded_train(mr, smi, train16)
+    # the dry-run's CPU-bound processes start after the timed parts
+    # (they moved (a)'s times by up to 2.3x when they ran beside them)
+    started = start_dryrun()
+    sharding_chain(mr)
+    nccl_mesh(mr)
+    dry = dryrun_cells(started)
+    print(f"sharding: phase 18 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return dict(sharded, batched=rows, remat=remat_rows, dryrun=dry)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -2827,6 +3359,7 @@ def main():
     kernels[3]["families"] = dict(arch=kimi["arch"], cut=kimi["cut"],
                                   launches=kimi["launches"]["moe_plan"],
                                   plan=kimi["plan"])
+    kernels[3]["sharded"] = sharding(mr, smi, train)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

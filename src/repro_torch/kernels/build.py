@@ -48,6 +48,8 @@ LIBRARIES = {
         "moe_route_launch": [_vp, _ci, _vp, _vp],
         "moe_plan_launch": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
                             _vp],
+        "moe_plan_streams_launch": [_vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp,
+                                    _vp, _vp, _vp],
     }),
 }
 

@@ -53,6 +53,16 @@
 //      shared-memory atomics (a hot expert would serialize them) and
 //      without a search: pos = j - offset[expert];
 //   4. the plan, written in striped order (coalesced).
+// Batched (moe_plan_streams_launch): S independent streams of n ids each,
+// ids[S][n] row-major, in ONE launch of S blocks, blockIdx.x the stream:
+// block s plans ids[s] into row s of each output with its own expert
+// offsets, and order, slot and tok are relative to the stream.  This is
+// the reference's vmap of route over S arbitration shards
+// (repro/models/moe.py:91, moe_ffn_sharded), which runs moe_route_call
+// once per shard.  The streams share nothing, so each block is the
+// single-stream kernel on its row; at Qwen3-MoE training's 2 x 16,384
+// or 4 x 8,192 ids the blocks run on 2 or 4 SMs at once.  S = 1 is
+// moe_plan_launch.
 // The tile is the smallest of 256, 1,024, 4,096 or 16,384 entries that
 // holds n (128 x 2, 256 x 4, 512 x 8, 1024 x 16 threads x items).  Shared
 // memory: the sort's storage, reused for the sorted keys, plus E int32
@@ -111,6 +121,13 @@ __global__ void __launch_bounds__(kT) moe_plan_kernel(
     int32_t* __restrict__ tok) {
   using Tile = PlanTile<kT, kIpt>;
   extern __shared__ __align__(16) unsigned char smem[];
+  // this block's stream: row blockIdx.x of ids and of every output
+  const size_t row = static_cast<size_t>(blockIdx.x) * n;
+  ids += row;
+  order += row;
+  slot += row;
+  admit += row;
+  tok += row;
   auto& sort_tmp =
       *reinterpret_cast<typename Tile::Sort::TempStorage*>(smem);
   uint32_t* s_key = reinterpret_cast<uint32_t*>(smem);  // after the sort
@@ -170,13 +187,13 @@ __global__ void __launch_bounds__(kT) moe_plan_kernel(
   }
 }
 
-// One launch of moe_plan_kernel at tile kT x kIpt; raises the block's
-// dynamic shared-memory limit once per device.
+// One launch of moe_plan_kernel at tile kT x kIpt, one block per stream;
+// raises the block's dynamic shared-memory limit once per device.
 template <int kT, int kIpt>
-cudaError_t launch_plan(const int32_t* ids, int n, int n_experts,
-                        int capacity, int top_k, int end_bit, int32_t* order,
-                        int32_t* slot, uint8_t* admit, int32_t* tok,
-                        cudaStream_t s) {
+cudaError_t launch_plan(const int32_t* ids, int n_streams, int n,
+                        int n_experts, int capacity, int top_k, int end_bit,
+                        int32_t* order, int32_t* slot, uint8_t* admit,
+                        int32_t* tok, cudaStream_t s) {
   using Tile = PlanTile<kT, kIpt>;
   static std::atomic<unsigned> configured{0};
   int dev = 0;
@@ -192,7 +209,7 @@ cudaError_t launch_plan(const int32_t* ids, int n, int n_experts,
     configured.fetch_or(bit);
   }
   const int bytes = static_cast<int>(Tile::kUnion) + 4 * n_experts;
-  moe_plan_kernel<kT, kIpt><<<1, kT, bytes, s>>>(
+  moe_plan_kernel<kT, kIpt><<<n_streams, kT, bytes, s>>>(
       ids, n, n_experts, capacity, top_k, end_bit, order, slot, admit, tok);
   return cudaGetLastError();
 }
@@ -214,17 +231,20 @@ int moe_route_launch(const void* ids, int n, void* pos, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The routing plan of n (1 <= n <= 16,384) expert ids in arrival order
-// over n_experts (1 .. 4,096) experts at capacity C, in one launch:
-// order, slot and tok int32 [n] and admit bytes [n], all in the stable
-// expert-sorted order.  Returns cudaErrorInvalidValue without launching
-// on bad sizes (or n_experts * capacity past int32), else
-// cudaGetLastError() after the launch.
-int moe_plan_launch(const void* ids, int n, int n_experts, int capacity,
-                    int top_k, void* order, void* slot, void* admit,
-                    void* tok, void* stream) {
-  if (n < 1 || n > kPlanMaxN || n_experts < 1 || n_experts > kPlanMaxE ||
-      capacity < 0 || top_k < 1 ||
+// The routing plans of n_streams (1 .. 65,535) streams of n (1 <= n <=
+// 16,384) expert ids each, ids[n_streams][n] in arrival order, over
+// n_experts (1 .. 4,096) experts at capacity C, in one launch of one
+// block per stream: order, slot and tok int32 [n_streams][n] and admit
+// bytes [n_streams][n], each row in its stream's stable expert-sorted
+// order and relative to its stream.  Returns cudaErrorInvalidValue
+// without launching on bad sizes (or n_experts * capacity past int32),
+// else cudaGetLastError() after the launch.
+int moe_plan_streams_launch(const void* ids, int n_streams, int n,
+                            int n_experts, int capacity, int top_k,
+                            void* order, void* slot, void* admit, void* tok,
+                            void* stream) {
+  if (n_streams < 1 || n_streams > 65535 || n < 1 || n > kPlanMaxN ||
+      n_experts < 1 || n_experts > kPlanMaxE || capacity < 0 || top_k < 1 ||
       static_cast<long long>(n_experts) * capacity > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int end_bit =
@@ -237,20 +257,29 @@ int moe_plan_launch(const void* ids, int n, int n_experts, int capacity,
   uint8_t* a = static_cast<uint8_t*>(admit);
   int32_t* t = static_cast<int32_t*>(tok);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int S = n_streams;
   cudaError_t err;
   if (n <= 256)
-    err = launch_plan<128, 2>(in, n, n_experts, capacity, top_k, end_bit, o,
-                              sl, a, t, s);
+    err = launch_plan<128, 2>(in, S, n, n_experts, capacity, top_k, end_bit,
+                              o, sl, a, t, s);
   else if (n <= 1024)
-    err = launch_plan<256, 4>(in, n, n_experts, capacity, top_k, end_bit, o,
-                              sl, a, t, s);
+    err = launch_plan<256, 4>(in, S, n, n_experts, capacity, top_k, end_bit,
+                              o, sl, a, t, s);
   else if (n <= 4096)
-    err = launch_plan<512, 8>(in, n, n_experts, capacity, top_k, end_bit, o,
-                              sl, a, t, s);
+    err = launch_plan<512, 8>(in, S, n, n_experts, capacity, top_k, end_bit,
+                              o, sl, a, t, s);
   else
-    err = launch_plan<1024, 16>(in, n, n_experts, capacity, top_k, end_bit,
-                                o, sl, a, t, s);
+    err = launch_plan<1024, 16>(in, S, n, n_experts, capacity, top_k,
+                                end_bit, o, sl, a, t, s);
   return static_cast<int>(err);
+}
+
+// The routing plan of one stream: moe_plan_streams_launch at n_streams = 1.
+int moe_plan_launch(const void* ids, int n, int n_experts, int capacity,
+                    int top_k, void* order, void* slot, void* admit,
+                    void* tok, void* stream) {
+  return moe_plan_streams_launch(ids, 1, n, n_experts, capacity, top_k,
+                                 order, slot, admit, tok, stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,9 @@ computes the whole routing plan of ``repro/models/moe.py::route`` around
 that function — the stable expert sort, the positions and the admission
 — in one launch of the ``moe_plan`` kernel for up to ``PLAN_MAX_N`` ids
 over up to ``PLAN_MAX_E`` experts; larger plans sort with
-``torch.argsort`` and launch ``moe_route``.  A CUDA tensor always goes to
+``torch.argsort`` and launch ``moe_route``.  A batch of S plans (ids
+``[S, n]``, the reference's ``vmap`` of ``route`` over S arbitration
+shards) is one launch of the same kernel with one block per plan.  A CUDA tensor always goes to
 a hand-written kernel in ``csrc/moe_route.cu`` (built at first use by
 ``kernels/build.py``), a CPU tensor to the plain versions.  There is no
 fallback: a failed build or launch raises.  ``LAUNCHES`` counts kernel
@@ -31,13 +33,14 @@ PLAN_MAX_E = 4096
 LAUNCHES = {"moe_route": 0, "moe_plan": 0}
 
 _I32 = torch.int32
-_ROUTE = _PLAN = _STREAM = None     # resolved at the first CUDA launch
+_ROUTE = _PLAN = _PLANS = _STREAM = None   # resolved at the first launch
 
 
 def _resolve():
-    global _ROUTE, _PLAN, _STREAM
+    global _ROUTE, _PLAN, _PLANS, _STREAM
     lib = library("moe_route")
     _ROUTE, _PLAN = lib.moe_route_launch, lib.moe_plan_launch
+    _PLANS = lib.moe_plan_streams_launch
     _STREAM = raw_stream()
 
 
@@ -89,38 +92,53 @@ def _plan_from_sort(flat_ids, n_experts, capacity, top_k, positions):
             (order // top_k).to(torch.int32))
 
 
+def _per_stream(flat_ids, plan):
+    """``plan`` of each row of ``flat_ids`` [S, n] in turn, stacked:
+    (order, slot, admit, tok), each [S, n]."""
+    rows = [plan(r) for r in flat_ids.unbind(0)]
+    return tuple(torch.stack(f) for f in zip(*rows))
+
+
 def route_plan_plain(flat_ids, n_experts, capacity, top_k):
     """Plain PyTorch version of the routing plan (``moe_route_plain`` for
-    the positions)."""
+    the positions); of each stream in turn for ids [S, n]."""
+    if flat_ids.ndim == 2:
+        return _per_stream(flat_ids, lambda r: route_plan_plain(
+            r, n_experts, capacity, top_k))
     return _plan_from_sort(flat_ids, n_experts, capacity, top_k,
                            moe_route_plain)
 
 
-def _plan_outputs(flat_ids, n: int):
-    """(order, slot, tok, admit) for an n-id plan: the rows of one [3, n]
-    int32 allocation and an [n] bool one.  (One allocation split four ways,
-    admit viewed as the bytes of its tail, took more host time on the H100
-    machine: the views cost more than the allocation they save.)"""
-    order, slot, tok = flat_ids.new_empty((3, n))
-    return order, slot, tok, torch.empty(n, dtype=torch.bool,
+def _plan_outputs(flat_ids, shape):
+    """(order, slot, tok, admit) for a plan of ``shape`` ([n] or [S, n]):
+    the rows of one [3, *shape] int32 allocation and a bool one.  (One
+    allocation split four ways, admit viewed as the bytes of its tail,
+    took more host time on the H100 machine: the views cost more than the
+    allocation they save.)"""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    order, slot, tok = flat_ids.new_empty((3,) + shape)
+    return order, slot, tok, torch.empty(shape, dtype=torch.bool,
                                          device=flat_ids.device)
 
 
 def route_plan_call(flat_ids, n_experts: int, capacity: int, top_k: int):
     """flat_ids: [N] int32 expert ids in arrival order (token-major, top_k
-    per token).  Returns (order int32, slot int32, admit bool, tok int32),
-    each [N] in stable expert-sorted order: the arrival position, the
+    per token), or [S, N] for S independent plans.  Returns (order int32,
+    slot int32, admit bool, tok int32), each of flat_ids' shape, each
+    plan in its stable expert-sorted order: the arrival position, the
     expert-buffer slot ``id * capacity + pos`` or ``n_experts * capacity``
-    when dropped, ``pos < capacity``, and ``order // top_k``.
+    when dropped, ``pos < capacity``, and ``order // top_k`` (positions
+    relative to the plan's own row).
 
     On the card, N <= ``PLAN_MAX_N`` and n_experts <= ``PLAN_MAX_E`` is
-    one launch of ``moe_plan`` (ids outside [0, n_experts) give an
-    unspecified plan, never an access out of bounds); a larger plan takes
-    ``torch.argsort`` and ``moe_route_call``, chosen by size alone.  A
-    CPU tensor takes the plain versions."""
+    one launch of ``moe_plan`` for the whole batch, one block per plan
+    (ids outside [0, n_experts) give an unspecified plan, never an access
+    out of bounds); a larger plan takes ``torch.argsort`` and
+    ``moe_route_call``, plan by plan, chosen by size alone.  A CPU tensor
+    takes the plain versions."""
     try:
         fast = (flat_ids.is_cuda and flat_ids.dtype is _I32
-                and flat_ids.ndim == 1 and flat_ids.is_contiguous())
+                and flat_ids.ndim in (1, 2) and flat_ids.is_contiguous())
     except AttributeError:
         fast = False
     E, C, k = int(n_experts), int(capacity), int(top_k)
@@ -128,20 +146,33 @@ def route_plan_call(flat_ids, n_experts: int, capacity: int, top_k: int):
         raise ValueError(f"bad plan sizes: n_experts={E}, capacity={C}, "
                          f"top_k={k}")
     if not fast:                        # the CPU, or an error to raise
-        check_int32("flat_ids", flat_ids)
+        batched = isinstance(flat_ids, torch.Tensor) and flat_ids.ndim == 2
+        check_int32("flat_ids", flat_ids.view(-1) if batched and
+                    flat_ids.is_contiguous() else flat_ids)
+        if batched and flat_ids.shape[0] > 65535:
+            raise ValueError(f"{flat_ids.shape[0]} plans: at most 65,535 "
+                             "in one batch")
         same_device(flat_ids)
-    n = flat_ids.shape[0]
+    n = flat_ids.shape[-1]
     if n > PLAN_MAX_N or E > PLAN_MAX_E:
+        if flat_ids.ndim == 2:
+            return _per_stream(flat_ids, lambda r: _plan_from_sort(
+                r, E, C, k, moe_route_call))
         return _plan_from_sort(flat_ids, E, C, k, moe_route_call)
     if not fast:
         return route_plan_plain(flat_ids, E, C, k)
-    order, slot, tok, admit = _plan_outputs(flat_ids, n)
-    if n:
+    order, slot, tok, admit = _plan_outputs(flat_ids, flat_ids.shape)
+    if flat_ids.numel():
         if _PLAN is None:
             _resolve()
-        err = _PLAN(flat_ids.data_ptr(), n, E, C, k, order.data_ptr(),
-                    slot.data_ptr(), admit.data_ptr(), tok.data_ptr(),
-                    _STREAM(flat_ids.get_device()))
+        stream = _STREAM(flat_ids.get_device())
+        ptrs = (order.data_ptr(), slot.data_ptr(), admit.data_ptr(),
+                tok.data_ptr(), stream)
+        if flat_ids.ndim == 1:
+            err = _PLAN(flat_ids.data_ptr(), n, E, C, k, *ptrs)
+        else:
+            err = _PLANS(flat_ids.data_ptr(), flat_ids.shape[0], n, E, C, k,
+                         *ptrs)
         if err:
             raise_on(err, "moe_plan")
         LAUNCHES["moe_plan"] += 1

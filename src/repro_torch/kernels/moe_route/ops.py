@@ -17,8 +17,9 @@ def route_positions(sorted_ids):
 
 
 def route_plan(flat_ids, n_experts: int, capacity: int, top_k: int):
-    """flat_ids: [N] expert ids in arrival order (any integer dtype).
-    Returns (order, slot, admit, tok), each [N] in stable expert-sorted
-    order (``moe_route.route_plan_call``)."""
+    """flat_ids: [N] expert ids in arrival order (any integer dtype), or
+    [S, N] for S independent plans.  Returns (order, slot, admit, tok),
+    each of flat_ids' shape, in stable expert-sorted order per plan
+    (``moe_route.route_plan_call``)."""
     return route_plan_call(flat_ids.to(torch.int32).contiguous(), n_experts,
                            capacity, top_k)

@@ -22,6 +22,16 @@ def grads_of(cfg: ModelConfig, parallel, params, batch):
     return total.detach(), dict(zip(leaves, grads))
 
 
+def _replicated(v):
+    """A sharded (``DTensor``) batch entry gathered whole, once a step, so
+    that each microbatch's rows are a local slice (the first layer's
+    constraint shards them again); anything else as it is."""
+    if not hasattr(v, "device_mesh"):
+        return v
+    from torch.distributed.tensor import Replicate
+    return v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim)
+
+
 def make_train_step(cfg: ModelConfig, parallel: ParallelConfig,
                     tc: TrainConfig):
     """Returns train_step(params, opt_state, batch) -> (params, opt,
@@ -41,6 +51,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig,
     def train_step(params, opt_state, batch):
         dev = next(iter(params.values())).device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if mb > 1:
+            batch = {k: _replicated(v) for k, v in batch.items()}
         if mb == 1:
             loss, grads = grads_of(cfg, parallel, params, batch)
         else:
@@ -63,9 +75,10 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, parallel=None):
     def prefill_step(params, batch):
-        logits, cache, _ = lm.forward(cfg, params, batch, collect_cache=True)
+        logits, cache, _ = lm.forward(cfg, params, batch, parallel,
+                                      collect_cache=True)
         return logits[:, -1], cache
     return prefill_step
 

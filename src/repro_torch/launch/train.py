@@ -37,7 +37,8 @@ def train(arch: str, steps: int, batch: int, seq: int, smoke: bool,
     device = resolve_device(device)
     cfg = get_smoke(arch) if smoke else get_config(arch)
     shape = ShapeConfig("custom", "train", seq, batch)
-    plan = Sh.make_plan(cfg, shape, ParallelConfig(remat="none", microbatch=1))
+    plan = Sh.make_plan(cfg, shape, None,
+                        ParallelConfig(remat="none", microbatch=1))
     tc = TrainConfig(warmup_steps=10)
 
     params = LM.init_params(cfg, torch.Generator(device=device).manual_seed(0))

@@ -65,16 +65,41 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int):
     raise ValueError(cfg.family)
 
 
+def _normalize(spec):
+    return {name: (tuple(s), torch_dtype(d), a) for name, (s, d, a) in
+            spec.items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
+    """The cache as tensors on ``torch.device("meta")`` (no storage)."""
+    spec = _normalize(cache_spec(cfg, batch, max_len))
+    return {n: torch.empty(s, dtype=d, device="meta")
+            for n, (s, d, _) in spec.items()}
+
+
 def zero_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     return {n: torch.zeros(s, dtype=d, device=device)
             for n, (s, d, _) in cache_spec(cfg, batch, max_len).items()}
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    spec = _normalize(cache_spec(cfg, 1, 1))
+    return {n: a for n, (s, d, a) in spec.items()}
 
 
 # -------------------------------------------------------- decode bodies ----
 
 def _write_kv(k_cache, v_cache, k_new, v_new, pos):
     """k_cache: [B, Lmax, G, dh]; k_new: [B, G, dh]; pos: [B].  Writes row
-    b's K/V at position pos[b], in place."""
+    b's K/V at position pos[b], in place.  A sharded (``DTensor``) cache
+    takes a masked write, which keeps its shards where they are."""
+    if hasattr(k_cache, "device_mesh"):
+        hit = (torch.arange(k_cache.shape[1], device=pos.device)[None]
+               == pos[:, None])[:, :, None, None]          # [B, Lmax, 1, 1]
+        for c, new in ((k_cache, k_new), (v_cache, v_new)):
+            out = torch.where(hit, new[:, None].to(c.dtype), c)
+            c.copy_(out.redistribute(c.device_mesh, c.placements))
+        return k_cache, v_cache
     rows = torch.arange(k_cache.shape[0], device=k_cache.device)
     k_cache[rows, pos] = k_new
     v_cache[rows, pos] = v_new

@@ -22,9 +22,16 @@ no copy), and whose ``shared`` blocks hold the hybrid family's
 functions on tensors under the reference's names.  Training runs
 ``forward`` and ``loss_fn`` on the flat dict itself, with each stacked
 tensor split per layer inside the forward, so autograd reaches the
-tensors that the optimizer and the checkpoint hold.  The port runs on one
-device, so the reference's sharding constraints (``constrain``) are the
-identity and are left out, and its dry-run ``unroll`` is ignored.
+tensors that the optimizer and the checkpoint hold.
+
+Sharding: ``constrain`` is the reference's sharding constraint.  It is the
+identity unless a launcher has set mesh axes (``parallel.ctx.mesh_axes``)
+and the tensor is a ``DTensor``; then it redistributes the tensor to the
+resolved placements.  A sharded step runs on ``DTensor`` parameters (the
+dry-run, ``launch/dryrun.py``) under ``implicit_replication`` (the plain
+tensors it makes, such as RoPE tables, count as replicated).  The
+reference's dry-run ``unroll`` changes no value and is ignored: eager
+torch runs every loop as it is written.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.common.types import ModelConfig
 from repro_torch.models import params as P
@@ -42,10 +50,13 @@ from repro_torch.models.layers import (apply_rope, chunked_causal_attention,
                                        gated_mlp, plain_mlp, rms_norm,
                                        rope_cos_sin)
 from repro_torch.models.mamba2 import mamba2_forward
-from repro_torch.models.moe import capacity_for, load_balance_loss, moe_ffn
+from repro_torch.models.moe import (capacity_for, load_balance_loss, moe_ffn,
+                                    moe_ffn_sharded)
 from repro_torch.models.rwkv6 import rwkv6_channel_mix, rwkv6_time_mix
+from repro_torch.parallel.ctx import current_axes
 
 D = P.ParamDef
+_DATA = ("pod", "data")
 
 
 # ------------------------------------------------------------- defs ------
@@ -191,6 +202,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator):
                          generator.device)
 
 
+def abstract_params(cfg: ModelConfig):
+    """The parameters as tensors on ``torch.device("meta")`` (no
+    storage): the flat dict of ``init_params``' names, shapes and dtypes."""
+    return P.abstract_params(build_defs(cfg), cfg.dtype)
+
+
 # -------------------------------------------------------- embeddings ------
 
 def embed_inputs(cfg: ModelConfig, params, batch):
@@ -210,11 +227,36 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     return tok
 
 
+def constrain(x, *dims):
+    """Best-effort sharding constraint using whatever mesh axes exist.
+
+    dims: per-array-dim tuples of candidate mesh axis names (or None).
+    Axis names come from the launcher's parallel.ctx context; outside a
+    launcher (every one-device path) this is a no-op, and so it is on a
+    plain tensor.  A ``DTensor`` is redistributed to the placements of
+    the filtered spec on its own mesh."""
+    names = set(current_axes())
+    if not names or not hasattr(x, "device_mesh"):
+        return x
+    from repro_torch.parallel.sharding import placements
+    parts = []
+    for d in dims:
+        cand = d if isinstance(d, tuple) else (d,)
+        keep = tuple(a for a in cand if a is not None and a in names)
+        parts.append(keep if len(keep) > 1 else (keep[0] if keep else None))
+    want = placements(tuple(parts), x.device_mesh)
+    if tuple(x.placements) == tuple(want):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def lm_head(cfg: ModelConfig, params, x):
     """x: [B, L, D] -> float32 logits [B, L, V]."""
     w = params["embed"] if cfg.tie_embeddings else params["head"]
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return h.float() @ w.float().T
+    # keep logits vocab-sharded: without this the full [tokens, V] fp32
+    # tensor may be gathered per device
+    return constrain(h.float() @ w.float().T, _DATA, None, "model")
 
 
 # ------------------------------------------------------- block bodies ----
@@ -246,14 +288,20 @@ def _mlp_block(cfg, lp, x):
     return x + o.to(x.dtype)
 
 
-def _moe_block(cfg, lp, x, capacity):
+def _moe_block(cfg, lp, x, capacity, token_motion=False, arb_shards=1):
     """x: [..., D] (prefill [B, L, D] or decode [B, D]).  Returns (x +
-    the routed experts [+ the shared experts], the routing plan)."""
+    the routed experts [+ the shared experts], the routing plan):
+    per-shard arbitration over ``arb_shards`` shards when > 1."""
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     eparams = dict(router=lp["router"], w_gate=lp["e_gate"], w_up=lp["e_up"],
                    w_down=lp["e_down"])
-    y, plan = moe_ffn(h.reshape(-1, x.shape[-1]), eparams, cfg.moe, F.silu,
-                      capacity)
+    flat = h.reshape(-1, x.shape[-1])
+    if arb_shards > 1:
+        y, plan = moe_ffn_sharded(flat, eparams, cfg.moe, F.silu, capacity,
+                                  arb_shards)
+    else:
+        y, plan = moe_ffn(flat, eparams, cfg.moe, F.silu, capacity,
+                          token_motion)
     out = x + y.reshape(x.shape)
     if cfg.moe.n_shared_experts:
         s = gated_mlp(h, lp["se_gate"], lp["se_up"], lp["se_down"], "silu")
@@ -389,13 +437,31 @@ class LM(nn.Module):
                         self.shared, batch, collect_cache)
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """remat="dots": the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``.  The outputs of ``aten.mm`` and
+    ``aten.addmm`` (the projections, the router and the head: products
+    with no batch dim once flattened) are saved; everything else is
+    recomputed in the backward, ``aten.bmm`` too (attention scores and
+    the expert products ``ecd,edf->ecf``, which carry a batch dim in JAX
+    as well)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _forward(cfg: ModelConfig, top, layers, shared, batch,
-             collect_cache=False, remat="none"):
+             collect_cache=False, remat="none", seq_ax=None,
+             token_motion=False, arb_shards=1):
     """The forward over ``layers`` (one {sublayer: callable} per layer:
     the ``LM``'s ``Block`` modules when serving, the block bodies bound
     to one layer's tensors when training) and the hybrid family's
-    ``shared`` block.  ``remat == "full"`` checkpoints each layer, and
-    for hybrid each group, as the reference's ``maybe_remat`` does."""
+    ``shared`` block.  ``remat`` "full" checkpoints each layer, and for
+    hybrid each group, as the reference's ``maybe_remat`` does; "dots"
+    does so keeping the products of ``_dots_saveable``.  Each layer (each
+    group) starts by constraining the residual stream to (batch over the
+    data axes, sequence over ``seq_ax``); MoE layers arbitrate over
+    ``arb_shards`` shards, with ``token_motion``'s buffer layout."""
     x = embed_inputs(cfg, top, batch)
     B, L, _ = x.shape
     positions = torch.arange(L, dtype=torch.int32, device=x.device)[None]
@@ -406,12 +472,18 @@ def _forward(cfg: ModelConfig, top, layers, shared, batch,
     def run(f, *args):
         if remat == "full":
             return checkpoint(f, *args, use_reentrant=False)
+        if remat == "dots":
+            return checkpoint(f, *args, use_reentrant=False,
+                              context_fn=functools.partial(
+                                  create_selective_checkpoint_contexts,
+                                  _dots_saveable))
         return f(*args)
 
     if fam == "hybrid":
         ke = cfg.hybrid.attn_every
 
         def body(x, *mambas):       # one group: ke Mamba2 blocks + shared
+            x = constrain(x, _DATA, seq_ax, None)
             sts = []
             for m in mambas:
                 x, st = m(x, None, not collect_cache)
@@ -425,6 +497,7 @@ def _forward(cfg: ModelConfig, top, layers, shared, batch,
         capacity = capacity_for(B * L, cfg.moe) if fam == "moe" else 0
 
         def body(x, blk):           # one layer
+            x = constrain(x, _DATA, seq_ax, None)
             if fam == "rwkv":
                 x, (ltm, S) = blk["tm"](x)
                 x, lcm = blk["cm"](x)
@@ -432,7 +505,7 @@ def _forward(cfg: ModelConfig, top, layers, shared, batch,
             x, kv = blk["attn"](x, cos, sin)
             if fam != "moe":
                 return blk["mlp"](x), kv, None
-            x, plan = blk["moe"](x, capacity)
+            x, plan = blk["moe"](x, capacity, token_motion, arb_shards)
             return x, kv, load_balance_loss(plan["probs"], plan["ids"],
                                             cfg.moe.n_experts)
 
@@ -479,22 +552,17 @@ def as_model(cfg: ModelConfig, params) -> LM:
     return LM(cfg, params)
 
 
-def _remat(parallel) -> str:
-    """The parallel plan's remat mode; raises on what the port does not
-    run."""
+def _options(parallel):
+    """(remat, seq_axis, moe_token_motion, moe_arbitration_shards) of a
+    parallel plan (None: the defaults of a plain forward)."""
     if parallel is None:
-        return "none"
-    if getattr(parallel, "moe_token_motion", False) or getattr(
-            parallel, "moe_arbitration_shards", 1) > 1:
-        raise NotImplementedError(
-            "MoE token motion and sharded arbitration are not ported yet "
-            "(ROADMAP Queue 1 item 9, sharding and dry-run)")
+        return "none", None, False, 1
     remat = getattr(parallel, "remat", "none")
-    if remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP Queue 1 item 9, "
-            "sharding and dry-run); the port runs 'none' and 'full'")
-    return remat
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={remat!r}: expected none, full or dots")
+    return (remat, getattr(parallel, "seq_axis", None),
+            getattr(parallel, "moe_token_motion", False),
+            getattr(parallel, "moe_arbitration_shards", 1))
 
 
 def forward(cfg: ModelConfig, params, batch, parallel=None,
@@ -507,12 +575,15 @@ def forward(cfg: ModelConfig, params, batch, parallel=None,
     An ``LM`` runs its modules (serving; ``parallel`` does not apply).  A
     flat parameter dict runs the same block bodies on the dict's tensors,
     split per layer here, so the result is differentiable with respect to
-    them; ``parallel.remat == "full"`` recomputes each layer (each group
-    for hybrid) in the backward (``torch.utils.checkpoint``), as
-    ``jax.checkpoint`` does."""
+    them, under ``parallel``'s options: ``remat`` "full" recomputes each
+    layer (each group for hybrid) in the backward and "dots" all of it
+    but the ``aten.mm``/``addmm`` products (``torch.utils.checkpoint``,
+    as ``jax.checkpoint`` and its policy do); ``seq_axis`` shards the
+    residual stream's sequence; ``moe_token_motion`` and
+    ``moe_arbitration_shards`` as in ``models/moe.py``."""
     if isinstance(params, LM):
         return as_model(cfg, params)(batch, collect_cache)
-    remat = _remat(parallel)
+    remat, seq_ax, motion, shards = _options(parallel)
     per_layer = {n: t.unbind(0) for n, t in _strip(params,
                                                    "layers/").items()}
     layers = [_bound(cfg, _sublayers(cfg, {n: ts[i] for n, ts in
@@ -520,7 +591,8 @@ def forward(cfg: ModelConfig, params, batch, parallel=None,
               for i in range(cfg.n_layers)]
     shared = (_bound(cfg, _shared_sublayers(_strip(params, "shared/")))
               if cfg.family == "hybrid" else None)
-    return _forward(cfg, params, layers, shared, batch, collect_cache, remat)
+    return _forward(cfg, params, layers, shared, batch, collect_cache, remat,
+                    seq_ax, motion, shards)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, parallel=None):
@@ -531,9 +603,16 @@ def loss_fn(cfg: ModelConfig, params, batch, parallel=None):
     logits, _, aux = forward(cfg, params, batch, parallel)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     lse = torch.logsumexp(logits.float(), dim=-1)
-    # the gold logit by a gather (the reference's one-hot masked sum gives
-    # the same value); a masked label gathers class 0 and is masked below
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    if hasattr(logits, "device_mesh"):
+        # sharded logits: the reference's vocab-sharding-friendly masked
+        # reduce (a gather over a sharded vocab dim would gather it)
+        V = logits.shape[-1]
+        onehot = labels[..., None] == torch.arange(V, device=labels.device)
+        gold = torch.where(onehot, logits, 0.0).sum(dim=-1)
+    else:
+        # the gold logit by a gather (the masked sum gives the same value);
+        # a masked label gathers class 0 and is masked below
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     nll = lse - gold.float()
     mask = (labels >= 0).float()
     loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -4,7 +4,9 @@ Every model declares its parameters once as ``ParamDef``s (shape + logical
 axes + init style).  The port's parameters are a flat ``{name: tensor}``
 dict under the reference's ``flatten`` names (``"layers/wq"``, ...), with
 the per-layer tensors stacked over a leading layer axis as in the
-reference; ``unflatten`` gives the nested form.
+reference; ``unflatten`` gives the nested form.  Real init, the dry-run's
+meta stand-ins and the sharding specs (``parallel/sharding.py``) all come
+from the same defs.
 """
 from __future__ import annotations
 
@@ -80,6 +82,20 @@ def init_params(defs: Dict[str, ParamDef], generator: torch.Generator,
     dt = torch_dtype(dtype)
     return {n: _init_one(defs[n], generator, dt, device)
             for n in sorted(defs)}
+
+
+def abstract_params(defs: Dict[str, ParamDef], dtype
+                    ) -> Dict[str, torch.Tensor]:
+    """Stand-ins on ``torch.device("meta")``: shapes and dtypes, no
+    storage (the dry-run path).  The flat ``{name: tensor}`` dict."""
+    dt = torch_dtype(dtype)
+    return {n: torch.empty(d.shape, dtype=torch_dtype(d.dtype) if d.dtype
+                           else dt, device="meta")
+            for n, d in defs.items()}
+
+
+def param_logical_axes(defs: Dict[str, ParamDef]) -> Dict[str, tuple]:
+    return {n: d.axes for n, d in defs.items()}
 
 
 def unflatten(flat: Dict[str, object]) -> PyTree:

@@ -17,16 +17,21 @@ The update is applied IN PLACE to the parameter and moment tensors, under
 ``SLICE_ELEMS`` elements: at full width one float32 temporary of the
 stacked expert weights alone would take 6.4 GB, and the update makes
 about seven.  The update is elementwise and the int8 scale is per row, so
-the slices give the same bits as one pass over the leaf.
+the slices give the same bits as one pass over the leaf.  A ``DTensor``
+leaf (the dry-run's sharded state) is updated whole, with no view: each
+device holds only its shard, and a view of sharded dims into rows would
+make DTensor gather them.
 
-``abstract_state`` and ``state_shardings`` wait for the sharding and
-dry-run slice (ROADMAP Queue 1 item 9).
+``abstract_state`` gives the state as meta tensors (the dry-run path) and
+``state_shardings`` its specs: moments like their params, int8 scales
+like their params but the collapsed last dim, other scales replicated.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.types import TrainConfig
 from repro_torch.optim.compress import quantize_int8 as _q
@@ -75,6 +80,43 @@ def init_state(params, moment_dtype="float32") -> AdamWState:
                       payload(), scale(), payload(), scale())
 
 
+def abstract_state(params, moment_dtype="float32") -> AdamWState:
+    """The state of ``init_state`` as tensors on ``torch.device("meta")``
+    for a dict of parameters (or their meta stand-ins)."""
+    pd = _payload_dtype(moment_dtype)
+
+    def meta(shape, dt):
+        return torch.empty(tuple(shape), dtype=dt, device="meta")
+
+    def payload():
+        return {n: meta(p.shape, pd) for n, p in params.items()}
+
+    def scale():
+        return {n: meta(_scale_shape(p.shape) if moment_dtype == "int8"
+                        else (1,), torch.float32) for n, p in params.items()}
+
+    return AdamWState(meta((), torch.int32), payload(), scale(), payload(),
+                      scale())
+
+
+def state_shardings(param_sh, mesh=None, moment_dtype="float32"
+                    ) -> AdamWState:
+    """Specs of the state for the parameter specs ``param_sh`` ({name:
+    spec}, ``parallel.sharding.param_shardings``): moments like their
+    params; int8 scales like their params but the (collapsed) last dim;
+    the step and other scales replicated (the empty spec).  ``mesh`` is
+    the reference's argument: a spec does not depend on it."""
+    if moment_dtype == "int8":
+        def scale_spec(spec):
+            spec = list(spec[:max(len(spec), 1)]) or [None]
+            spec[-1] = None
+            return tuple(spec)
+        scales = {n: scale_spec(s) for n, s in param_sh.items()}
+    else:
+        scales = {n: () for n in param_sh}
+    return AdamWState((), dict(param_sh), scales, dict(param_sh), scales)
+
+
 def lr_at(tc: TrainConfig, step):
     warm = torch.clamp_max(step.float() / max(tc.warmup_steps, 1), 1.0)
     return tc.lr * warm
@@ -104,10 +146,40 @@ def _sq_norm(grads) -> torch.Tensor:
     dev = next(iter(grads.values())).device
     total = torch.zeros((), dtype=torch.float32, device=dev)
     for g in (grads[n] for n in sorted(grads)):
+        if isinstance(g, DTensor):        # reduced over its shards
+            total += torch.sum(torch.square(g.float())).full_tensor()
+            continue
         g2 = g.reshape(-1, _width(g))
         for sl in _row_slices(g, _NORM_ELEMS):
             total += torch.sum(torch.square(g2[sl].float()))
     return total
+
+
+def _adam(p, g, m, ms, v, vs, clip, lr, decay, bc1, bc2, tc, int8):
+    """One AdamW step of one leaf (or a slice of its rows) in float32, in
+    the reference's order: (new parameter, new m, new v)."""
+    def read(val, sc):
+        return val.float() * sc if int8 else val.float()
+
+    b1, b2 = tc.beta1, tc.beta2
+    g = g.float() * clip
+    m_f = b1 * read(m, ms)
+    m_f += (1 - b1) * g
+    v_f = b2 * read(v, vs)
+    v_f += (1 - b2) * g * g
+    delta = torch.sqrt(v_f / bc2)
+    delta += tc.eps
+    delta = (m_f / bc1).div_(delta)
+    new_p = p.float() * decay
+    new_p -= lr * delta
+    return new_p, m_f, v_f
+
+
+def _put(dst, src):
+    """Copy ``src`` into the DTensor ``dst`` in ``dst``'s placements."""
+    if src.placements != dst.placements:
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 @torch.no_grad()
@@ -119,38 +191,41 @@ def apply_updates(params, grads, state: AdamWState, tc: TrainConfig,
     step = state.step + 1
     t = step.float()
     lr = lr_at(tc, step)
-    b1, b2 = tc.beta1, tc.beta2
     int8 = moment_dtype == "int8"
     pd = _payload_dtype(moment_dtype)
     f32 = dict(dtype=torch.float32, device=t.device)
-    bc1 = 1 - torch.tensor(b1, **f32) ** t
-    bc2 = 1 - torch.tensor(b2, **f32) ** t
+    bc1 = 1 - torch.tensor(tc.beta1, **f32) ** t
+    bc2 = 1 - torch.tensor(tc.beta2, **f32) ** t
 
     gnorm = torch.sqrt(_sq_norm(grads))
     clip = torch.clamp_max(tc.grad_clip / torch.clamp_min(gnorm, 1e-12), 1.0)
 
-    def read(val, sc):
-        return val.float() * sc if int8 else val.float()
-
     for n, p in params.items():
         wd = 0.0 if p.ndim <= 1 else tc.weight_decay
         decay = 1 - lr * wd
-        p2, m2, v2 = _rows(p), _rows(state.m[n]), _rows(state.v[n])
+        m, v, ms, vs = (state.m[n], state.v[n], state.m_scale[n],
+                        state.v_scale[n])
+        if isinstance(p, DTensor):
+            new_p, m_f, v_f = _adam(p, grads[n], m, ms, v, vs, clip, lr,
+                                    decay, bc1, bc2, tc, int8)
+            _put(p, new_p.to(p.dtype))
+            if int8:
+                for val, sc, x in ((m, ms, m_f), (v, vs, v_f)):
+                    q, s = _q(x)
+                    _put(val, q)
+                    _put(sc, s)
+            else:
+                _put(m, m_f.to(pd))
+                _put(v, v_f.to(pd))
+            continue
+        p2, m2, v2 = _rows(p), _rows(m), _rows(v)
         g2 = grads[n].reshape(p2.shape)
-        ms2 = state.m_scale[n].view(-1, 1)
-        vs2 = state.v_scale[n].view(-1, 1)
+        ms2, vs2 = ms.view(-1, 1), vs.view(-1, 1)
         for sl in _row_slices(p, SLICE_ELEMS):
-            ms, vs = (ms2[sl], vs2[sl]) if int8 else (ms2, vs2)
-            g = g2[sl].float() * clip
-            m_f = b1 * read(m2[sl], ms)
-            m_f += (1 - b1) * g
-            v_f = b2 * read(v2[sl], vs)
-            v_f += (1 - b2) * g * g
-            delta = torch.sqrt(v_f / bc2)
-            delta += tc.eps
-            delta = (m_f / bc1).div_(delta)
-            new_p = p2[sl].float() * decay
-            new_p -= lr * delta
+            new_p, m_f, v_f = _adam(p2[sl], g2[sl], m2[sl],
+                                    ms2[sl] if int8 else ms2, v2[sl],
+                                    vs2[sl] if int8 else vs2, clip, lr,
+                                    decay, bc1, bc2, tc, int8)
             p2[sl] = new_p.to(p.dtype)
             if int8:
                 for val, sc, x in ((m2, ms2, m_f), (v2, vs2, v_f)):

@@ -167,8 +167,9 @@ def test_route_plan_routes_by_size(n, E, chain, monkeypatch):
 
 @pytest.mark.parametrize("bad,err", [
     (lambda x: x.to(torch.int64), TypeError),
-    (lambda x: x.reshape(2, 4), ValueError),
+    (lambda x: x.reshape(2, 2, 2), ValueError),    # [S, n] is a batch
     (lambda x: torch.stack([x, x], 1)[:, 0], ValueError),   # strided
+    (lambda x: torch.stack([x, x], 1).T, ValueError),       # strided [S, n]
     (lambda x: x.numpy(), TypeError),
 ])
 def test_route_plan_call_rejects_bad_inputs(bad, err):

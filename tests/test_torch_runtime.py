@@ -82,12 +82,12 @@ def test_make_plan_matches_jax_on_one_device(arch):
     for js, ts in zip(J_SHAPES, SHAPES):
         for kw in (dict(), dict(microbatch=4), dict(moment_dtype="bfloat16")):
             jp = JSh.make_plan(j_get(arch), js, mesh, JParallel(**kw))
-            tp = Sh.make_plan(get(arch), ts, ParallelConfig(**kw))
+            tp = Sh.make_plan(get(arch), ts, None, ParallelConfig(**kw))
             assert tp.microbatch == jp.microbatch, (js.name, kw)
             assert dataclasses.asdict(tp.parallel) == \
                 dataclasses.asdict(jp.parallel), (js.name, kw)
             assert tp.describe() == jp.describe()
-    moe = Sh.make_plan(get(ARCH), ShapeConfig("c", "train", 512, 8),
+    moe = Sh.make_plan(get(ARCH), ShapeConfig("c", "train", 512, 8), None,
                        ParallelConfig(remat="none", microbatch=1))
     assert (moe.microbatch, moe.parallel.moment_dtype) == (1, "int8")
 

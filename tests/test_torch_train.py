@@ -129,17 +129,6 @@ def test_dict_forward_equals_lm_module(jparams):
     assert torch.equal(a[2]["moe_aux"], b[2]["moe_aux"])
 
 
-@pytest.mark.parametrize("kw", [dict(remat="dots"),
-                                dict(moe_token_motion=True),
-                                dict(moe_arbitration_shards=2)])
-def test_unported_parallel_options_raise(jparams, kw):
-    _, tcfg = _cfgs()
-    tp = convert_params(_flat(jparams), tcfg, "cpu")
-    b = {k: torch.tensor(v) for k, v in _batch(0, tcfg.vocab_size).items()}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TLM.loss_fn(tcfg, tp, b, ParallelConfig(**kw))
-
-
 # ------------------------------------------------------- make_train_step --
 
 def _check_params(jp, tp, jo_in, lr, md):
