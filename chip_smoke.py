@@ -118,7 +118,26 @@ Phases (each one exits non-zero on failure):
               against the CPU port; (e) a one-rank NCCL mesh: the forward
               on DTensor parameters and ``compressed_mean``; (f) the
               dry-run of three cells in subprocesses started after (c)
-              (the port's fake-mesh estimates).
+              (the port's fake-mesh estimates);
+19. train_families — the registry's non-MoE configurations trained at
+              full width on the launcher's plan (float32 moments, one
+              microbatch): (a) qwen1p5_0p5b, internvl2_1b, gemma_2b,
+              musicgen_large, zamba2_2p7b, rwkv6_7b, starcoder2_15b and
+              yi_34b, whole or cut to the most layers (whole groups for
+              Zamba2) whose step fits the card (probed at one and two),
+              steps 0-3 of 8 x 512 through ``make_train_step``: the
+              step-0 loss against ``loss_fn``, finite losses, changed
+              parameters, no moe_route/moe_plan launch, step time,
+              tokens/s, MFU, peak memory, the AdamW update's share, and
+              a profiled step of each; (b) the train launcher, 4
+              steps + resume to 6 against a continuous 6, bit for bit
+              under deterministic algorithms: qwen1.5-0.5b at full width
+              (24 layers, 8 x 512), RWKV6, Zamba2 and Kimi-K2 at the
+              smoke size; (c) one layer (one group) of each family at its
+              published widths in float32, a train step's loss and
+              gradients on the card against the CPU port; then
+              ``examples/lm_train_torch.py`` on the card, 30 steps and a
+              resume to 60.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -1267,7 +1286,8 @@ def _profile_steps(fn, tries=3):
 
 def _profile(label, fn, top=None):
     """Wall time and device busy time of ``fn()`` under torch.profiler,
-    with the ``top`` kernels by device time (all when None)."""
+    with the ``top`` kernels by device time (all when None); returns the
+    busy share (None where the profiler saw no device activity)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1280,13 +1300,14 @@ def _profile(label, fn, top=None):
     if dev_us == 0:
         print(f"profile [{label}]: device time not measured (profiler saw "
               "no device activity)", flush=True)
-        return
+        return None
     short = lambda k: k.replace("(anonymous namespace)::", "").split(
         "(")[0].split("<")[0].split("::")[-1][:48]
     print(f"profile [{label}]: wall {wall * 1e3:.3f} ms (profiler on), "
           f"device busy {dev_us / 1e3:.3f} ms = {dev_us / 1e6 / wall:.4%}; "
           "by name: " + "; ".join(f"{short(k)} x{c} {t:.1f} us"
                                   for t, k, c in rows[:top]), flush=True)
+    return dev_us / 1e6 / wall
 
 
 def profile_batch(tk, gpu, hi, p):
@@ -2336,40 +2357,61 @@ def train_path(mr, smi):
                 optimizer_share=opt_ms / (step_s * 1e3), losses=losses)
 
 
-def launcher_restart(mr):
-    """(b) The launcher on the card at the smoke size: 4 steps with a
-    checkpoint every 2, then 6 with resume, against a continuous 6-step
-    run: the final parameters bit for bit, under
-    ``torch.use_deterministic_algorithms`` (this phase only)."""
+# a step line of the train launcher: (step, loss, ms)
+STEP_LINE = re.compile(r"step +(\d+) loss (\S+) +(\S+)ms")
+
+
+def launcher_restart(mr, arch=MOE_ARCH, batch=2, seq=32, smoke=True,
+                     what="train: (b)"):
+    """The launcher on the card: 4 steps with a checkpoint every 2, then 6
+    with resume, against a continuous 6-step run: every parameter and the
+    last loss bit for bit, under ``torch.use_deterministic_algorithms``
+    (this check only); a MoE config launches one moe_plan per layer per
+    step.  Phase 16 (b) runs it on Qwen3-MoE at the smoke size."""
+    import contextlib
+    import io
     import tempfile
 
+    from repro_torch.configs.registry import get, get_smoke
     from repro_torch.launch.train import train
 
+    cfg = (get_smoke if smoke else get)(arch)
+    kw = dict(batch=batch, seq=seq, smoke=smoke, ckpt_every=2, device="cuda")
     prev = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    log = io.StringIO()
     try:
-        with tempfile.TemporaryDirectory() as d:
-            kw = dict(batch=2, seq=32, smoke=True, ckpt_every=2,
-                      device="cuda")
+        with tempfile.TemporaryDirectory() as d, \
+                contextlib.redirect_stdout(log):
             _reset(mr)
-            train(MOE_ARCH, steps=4, ckpt_dir=f"{d}/a", **kw)
-            resumed, loss_r = train(MOE_ARCH, steps=6, ckpt_dir=f"{d}/a",
-                                    **kw)
-            cont, loss_c = train(MOE_ARCH, steps=6, ckpt_dir=f"{d}/b", **kw)
+            train(arch, steps=4, ckpt_dir=f"{d}/a", **kw)
+            resumed, loss_r = train(arch, steps=6, ckpt_dir=f"{d}/a", **kw)
+            cont, loss_c = train(arch, steps=6, ckpt_dir=f"{d}/b", **kw)
             launches = dict(mr.LAUNCHES)
     finally:
         torch.use_deterministic_algorithms(prev)
+    secs = time.perf_counter() - t0
     same = [n for n in cont if torch.equal(cont[n], resumed[n])]
     check(len(same) == len(cont) and loss_r == loss_c,
-          f"train: (b) resumed and continuous runs differ ({len(same)} of "
-          f"{len(cont)} tensors equal; losses {loss_r} / {loss_c})")
-    check(launches["moe_plan"] == 2 * 2 * 6 and launches["moe_route"] == 0,
-          f"train: (b) launches {launches}, expected one moe_plan per layer "
-          "per step")
-    print(f"train: (b) launcher 4 steps + resume to 6 equals a continuous "
-          f"6-step run bit for bit ({len(cont)} tensors; last loss "
-          f"{loss_c:.6f}), deterministic algorithms on; launches {launches}",
+          f"{what} {arch}: resumed and continuous runs differ ({len(same)} "
+          f"of {len(cont)} tensors equal; losses {loss_r} / {loss_c})")
+    check("resumed from step 4" in log.getvalue(),
+          f"{what} {arch}: the second run did not resume")
+    want = {"moe_plan": cfg.n_layers * 12 if cfg.family == "moe" else 0,
+            "moe_route": 0}
+    check(launches == want, f"{what} {arch}: launches {launches}, expected "
+          f"{want} (one moe_plan per MoE layer per step)")
+    steps = STEP_LINE.findall(log.getvalue())
+    print(f"{what} {cfg.name} ({'smoke size' if smoke else 'full width'}, "
+          f"{cfg.n_layers} layers, {batch} x {seq}): the launcher's 4 steps "
+          f"+ resume to 6 equal a continuous 6-step run bit for bit "
+          f"({len(cont)} tensors; last loss {loss_c:.6f}), deterministic "
+          f"algorithms on; launches {launches}; {secs:.1f} s; steps (step, "
+          "loss, ms): " + " ".join(f"{a}:{b}:{c}" for a, b, c in steps),
           flush=True)
+    del resumed, cont
+    torch.cuda.empty_cache()
 
 
 def train_chain(mr):
@@ -2454,14 +2496,14 @@ def _cut(cfg, budget: float, width: int):
     return n, rest + n * per_layer
 
 
-def _free(base: int):
+def _free(base: int, what: str = "families"):
     """Collect and empty the cache between models; nothing of the last
     model may stay allocated beyond the ``base`` bytes held before."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() - base
-    check(held < 0.5e9, f"families: {held / 1e9:.2f} GB more allocated "
+    check(held < 0.5e9, f"{what}: {held / 1e9:.2f} GB more allocated "
           "than when the phase started, between models")
 
 
@@ -3292,6 +3334,371 @@ def sharding(mr, smi, train16):
     return dict(sharded, batched=rows, remat=remat_rows, dryrun=dry)
 
 
+# --------------------------------------------------------------- phase 19 --
+
+# (a) the registry's non-MoE configurations, trained at full width on the
+# launcher's plan (float32 moments, one microbatch)
+TRAIN_FAMILIES = ("qwen1p5_0p5b", "internvl2_1b", "gemma_2b",
+                  "musicgen_large", "zamba2_2p7b", "rwkv6_7b",
+                  "starcoder2_15b", "yi_34b")
+# the block matrix each family's check probes for a change
+TRAIN_PROBE = {"dense": "layers/wq", "vlm": "layers/wq", "audio": "layers/wq",
+               "rwkv": "layers/tm/wr", "hybrid": "layers/wx"}
+FT_B, FT_SEQ, FT_STEPS = 8, 512, 4
+# bytes of the card's free memory a cut leaves beyond its projected peak
+# allocation, for the caching allocator's fragmentation (before it
+# reports out of memory it frees its cached blocks and retries, so most
+# of the reserved-over-allocated slack the phase prints is reusable)
+FT_HEADROOM = 3e9
+# (c) one layer (one group for hybrid) of each family at its published
+# widths in float32, card against the CPU port; 1 x 128 positions, the
+# VLM's 256 patches + 128 tokens
+TRAIN_CHAIN = ("qwen1p5_0p5b", "internvl2_1b", "musicgen_large", "rwkv6_7b",
+               "zamba2_2p7b")
+CHAIN_SEQ = 128
+# each gradient's relative L2 difference, card against CPU: float32 sums
+# over 4,096-wide rows and 128-position columns taken in another order
+# (cuBLAS's split-K and tiles against MKL's) differ by a few ulps a sum,
+# ~1e-7 relative each; 1e-4 leaves three orders for the chains of them
+GRAD_REL_L2 = 1e-4
+# (b) the launcher, 4 steps + resume to 6 against a continuous 6
+LAUNCH_RESTART = (("qwen1.5-0.5b", dict(batch=FT_B, seq=FT_SEQ, smoke=False)),
+                  ("rwkv6-7b", dict(batch=2, seq=32, smoke=True)),
+                  ("zamba2-2.7b", dict(batch=2, seq=32, smoke=True)),
+                  ("kimi-k2-1t-a32b", dict(batch=2, seq=32, smoke=True)))
+# the example's short run on the card: --steps EX_STEPS[0], then resumed
+# to EX_STEPS[1]
+EX_STEPS = (30, 60)
+
+
+def _unit(cfg) -> int:
+    """Layers a cut moves by: hybrid's whole groups, else one."""
+    return cfg.hybrid.attn_every if cfg.family == "hybrid" else 1
+
+
+def _train_plan(cfg):
+    """The launcher's plan for ``cfg`` at (a)'s batch
+    (``launch/train.py``)."""
+    from repro_torch.common.types import ParallelConfig, ShapeConfig
+    from repro_torch.parallel.sharding import make_plan
+    return make_plan(cfg, ShapeConfig("train", "train", FT_SEQ, FT_B), None,
+                     ParallelConfig(remat="none", microbatch=1))
+
+
+def _train_state(cfg, parallel):
+    """Seeded random parameters on the card and zero AdamW moments."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    params = lm.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SEED))
+    return params, adamw.init_state(params, parallel.moment_dtype)
+
+
+def _probe_peak(cfg, parallel, tc, batch, base):
+    """Peak bytes beyond ``base`` of a fresh state of ``cfg`` and one
+    train step on ``batch``."""
+    from repro_torch.launch.steps import make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = _train_state(cfg, parallel)
+    make_train_step(cfg, parallel, tc)(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, opt
+    _free(base, "train_families")
+    return peak
+
+
+def _train_cut(full, parallel, tc, batch, base):
+    """The deepest cut of ``full`` (whole groups for hybrid) whose train
+    step fits the card: one step each at one and two units measures the
+    fixed cost (embedding, head, the float32 logits) and the cost of a
+    unit (its state and activations); the cut is the most units whose
+    projected peak leaves ``FT_HEADROOM`` of the card's free memory
+    free.  Returns (layers, the numbers behind the cut)."""
+    unit = _unit(full)
+    limit = torch.cuda.mem_get_info()[0] - FT_HEADROOM
+    p1 = _probe_peak(dataclasses.replace(full, n_layers=unit), parallel, tc,
+                     batch, base)
+    p2 = _probe_peak(dataclasses.replace(full, n_layers=2 * unit), parallel,
+                     tc, batch, base)
+    per = p2 - p1
+    units = min(full.n_layers // unit, 1 + int((limit - p1) // per))
+    check(units >= 1, f"train_families: {full.name}: one layer's step "
+          f"({p1 / 1e9:.2f} GB) does not fit the card")
+    whole = p1 + (full.n_layers // unit - 1) * per
+    return units * unit, dict(p1=p1, per=per, limit=limit, whole=whole,
+                              projected=p1 + (units - 1) * per)
+
+
+def train_family(mr, arch, smi, base):
+    """(a) One configuration: its cut, steps 0-3 of 8 x 512 through
+    ``make_train_step`` on the launcher's plan, the checks, step time,
+    tokens/s, MFU, peak memory, the AdamW update's share and a profiled
+    step.  Returns its row."""
+    from repro_torch.common import hw
+    from repro_torch.common.types import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.dryrun import model_flops
+    from repro_torch.launch.steps import grads_of, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    t0 = time.perf_counter()
+    full = get(arch)
+    plan = _train_plan(full)
+    check(plan.microbatch == 1 and plan.parallel.moment_dtype == "float32",
+          f"train_families: {arch} plan {plan.describe()}")
+    par, tc = plan.parallel, TrainConfig(warmup_steps=10)
+    data = SyntheticLM(full, FT_SEQ, FT_B)
+    b0 = {k: torch.as_tensor(v, device="cuda")
+          for k, v in data.batch(0).items()}
+    n, why = _train_cut(full, par, tc, b0, base)
+    cfg = dataclasses.replace(full, n_layers=n)
+    cut_plan = _train_plan(cfg)
+    check(cut_plan.parallel == par and cut_plan.microbatch == 1,
+          f"train_families: {arch} cut to {n} layers plans "
+          f"{cut_plan.describe()}")
+    cut = f"{n} of {full.n_layers} layers"
+    gb = lambda x: f"{x / 1e9:.2f} GB"
+    reason = (f"whole model projected {gb(why['whole'])}" if
+              n == full.n_layers else
+              f"whole model projected {gb(why['whole'])} > {gb(why['limit'])}"
+              f" (the card's free memory less {gb(FT_HEADROOM)}); "
+              f"{n + _unit(full)} layers {gb(why['projected'] + why['per'])}")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_reserved()
+    params, opt = _train_state(cfg, par)
+    torch.cuda.synchronize()
+    count = sum(t.numel() for t in params.values())
+    state_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    step_fn = make_train_step(cfg, par, tc)
+    _reset(mr)
+    with torch.no_grad():
+        ref0 = float(lm.loss_fn(cfg, params, b0, par)[0])
+    names = ["embed" if "embed" in params else "head",
+             TRAIN_PROBE[cfg.family], "final_norm"]
+    probe = {nm: params[nm][..., :8].clone() for nm in names}
+    losses, secs = [], []
+    for s in range(FT_STEPS):
+        batch = data.batch(s)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() - base
+    slack = torch.cuda.max_memory_reserved() - held - peak
+    launches = dict(mr.LAUNCHES)
+    check(not any(launches.values()), f"train_families: {arch} launched "
+          f"{launches}: the non-MoE families route nothing")
+    check(all(np.isfinite(losses)), f"train_families: {arch} losses {losses}")
+    check(abs(losses[0] - ref0) <= 1e-3 * abs(ref0),
+          f"train_families: {arch} step 0 loss {losses[0]} against loss_fn "
+          f"{ref0}")
+    changed = [nm for nm, t in probe.items()
+               if not torch.equal(t, params[nm][..., :8])]
+    # final_norm's bf16 entries start at 1.0, where a warm-up step's
+    # update (lr x step / 10 <= 1.2e-4 here) is less than half an ulp
+    # (2^-9 below 1.0) and rounds away: its update shows in its moment
+    norm_m = float(opt.m["final_norm"].abs().max())
+    check(names[:2] == changed[:2] and norm_m > 0,
+          f"train_families: {arch} changed {changed}, final_norm's largest "
+          f"|m| {norm_m}")
+    step_s = statistics.median(secs[1:])
+    tokens = FT_B * FT_SEQ
+    flops = model_flops(cfg, ShapeConfig("train", "train", FT_SEQ, FT_B))[0]
+    mfu = flops / step_s / hw.PEAK_FLOPS_BF16
+
+    # the update alone, on real gradients
+    _, grads = grads_of(cfg, par, params, b0)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    params, opt, _ = adamw.apply_updates(params, grads, opt, tc, "float32")
+    e1.record()
+    e1.synchronize()
+    opt_ms = e0.elapsed_time(e1)
+    del grads
+    # the update's bytes: parameter read and written, gradient read,
+    # float32 m and v each read and written
+    opt_bound, _ = bound_ms(sum(t.numel() * (3 * t.element_size() + 16)
+                                for t in params.values()), 0)
+    busy = _profile(f"train_families: one step of {cfg.name} ({cut}) | {smi}",
+                    lambda: step_fn(params, opt, batch), top=6)
+    row = dict(arch=arch, family=cfg.family, cut=cut, n_layers=n, busy=busy,
+               params=count, state_gb=state_gb, peak_gb=peak / 1e9,
+               slack_gb=slack / 1e9,
+               projected_gb=why["projected"] / 1e9, losses=losses,
+               ref0=ref0, step_ms=[x * 1e3 for x in secs],
+               median_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+               mfu=mfu, optimizer_ms=opt_ms, optimizer_bound_ms=opt_bound,
+               optimizer_share=opt_ms / (step_s * 1e3))
+    print(f"train_families: {cfg.name}, {cut} ({reason}; one layer's step "
+          f"{gb(why['p1'])}, each further {_unit(full)} {gb(why['per'])}), "
+          f"{count:,} parameters; parameters + float32 moments "
+          f"{state_gb:.2f} GB; {plan.describe()}; {FT_STEPS} steps of {FT_B}"
+          f" x {FT_SEQ}: losses {', '.join(f'{x:.6f}' for x in losses)} "
+          f"(step 0 against loss_fn {ref0:.6f}: rel diff "
+          f"{abs(losses[0] - ref0) / abs(ref0):.2e}); step times "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in secs)} ms, median of "
+          f"steps 1-3 {step_s * 1e3:.3f} ms = {tokens / step_s:,.1f} "
+          f"tokens/s; MFU {mfu:.4%} ({flops / 1e12:.3f} TFLOP a step = "
+          f"6 x parameters x tokens, model_flops: no attention, WKV or SSD "
+          f"recurrence term; over {hw.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s "
+          f"bf16); peak {peak / 1e9:.2f} GB (projected "
+          f"{why['projected'] / 1e9:.2f}; the allocator reserved "
+          f"{slack / 1e9:.2f} GB more); AdamW {opt_ms:.3f} ms = "
+          f"{opt_ms / (step_s * 1e3):.2%} of the median step, "
+          f"{opt_ms / opt_bound:.1f}x its bytes bound {opt_bound:.3f} ms; "
+          f"changed "
+          f"{changed}, final_norm's largest |m| {norm_m:.3e}; launches "
+          f"{launches} | {smi}", flush=True)
+    del params, opt, step_fn, probe, b0
+    _free(base, "train_families")
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def launcher_families(mr):
+    """(b) ``launcher_restart`` on qwen1.5-0.5b at full width and on
+    RWKV6, Zamba2 and Kimi-K2 at the smoke size."""
+    for arch, kw in LAUNCH_RESTART:
+        launcher_restart(mr, arch, what="train_families: (b)", **kw)
+
+
+def _rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float64 (0 where both are 0)."""
+    a, b = a.double(), b.double()
+    den = float(b.norm())
+    num = float((a - b).norm())
+    return num / den if den else num
+
+
+def train_chain_full(mr):
+    """(c) One layer (one group for hybrid) of each family at its
+    published widths in float32, one set of converted parameters on the
+    card and through the CPU port, TF32 off: ``grads_of`` and one
+    ``make_train_step``; the loss within 1e-5, each gradient within
+    ``GRAD_REL_L2`` relative L2."""
+    from repro_torch.common.types import ParallelConfig, TrainConfig
+    from repro_torch.configs.registry import get
+    from repro_torch.convert import convert_params
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import grads_of, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    par = ParallelConfig(remat="none", microbatch=1, moment_dtype="float32")
+    report = []
+    for arch in TRAIN_CHAIN:
+        full = get(arch)
+        cfg = dataclasses.replace(full, n_layers=_unit(full), dtype="float32")
+        seq = CHAIN_SEQ + cfg.n_frontend_tokens * (
+            cfg.frontend == "vision_stub")
+        flat = {n: t.numpy() for n, t in lm.init_params(
+            cfg, torch.Generator().manual_seed(SEED)).items()}
+        batch = SyntheticLM(cfg, seq, 1).batch(0)
+        out = {}
+        for dev in ("cuda", "cpu"):
+            params = convert_params(flat, cfg, dev)
+            _, grads = grads_of(cfg, par, params, batch)
+            grads = {n: g.cpu() for n, g in grads.items()}
+            _reset(mr)
+            _, _, m = make_train_step(cfg, par, TrainConfig(warmup_steps=10))(
+                params, adamw.init_state(params, "float32"), batch)
+            out[dev] = (float(m["loss"]), grads, dict(mr.LAUNCHES))
+            del params
+        (lg, gg, launches), (lc, gc_, _) = out["cuda"], out["cpu"]
+        check(abs(lg - lc) <= 1e-5 * abs(lc), f"train_families: (c) {arch} "
+              f"loss {lg} against the CPU port's {lc}")
+        check(not any(launches.values()),
+              f"train_families: (c) {arch} launches {launches}")
+        rel = {n: _rel_l2(gg[n], g) for n, g in gc_.items()}
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= GRAD_REL_L2, f"train_families: (c) {arch} "
+              f"gradient {worst} differs from the CPU port's by relative L2 "
+              f"{rel[worst]:.3e} (gate {GRAD_REL_L2})")
+        count = sum(int(np.prod(a.shape)) for a in flat.values())
+        report.append(f"{arch} ({cfg.n_layers} of {full.n_layers} layers, "
+                      f"{count:,} parameters, 1 x {seq}): loss {lg:.7f} / "
+                      f"{lc:.7f}, worst gradient {worst} {rel[worst]:.2e}")
+        del flat, out, gg, gc_
+    print("train_families: (c) full width, one layer, float32, card "
+          "against the CPU port (loss at 1e-5, each gradient's relative L2 "
+          f"at {GRAD_REL_L2}): " + "; ".join(report) +
+          f"; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def example_run(smi):
+    """``examples/lm_train_torch.py`` on the card in a scratch directory:
+    ``--steps`` EX_STEPS[0], then resumed to EX_STEPS[1]; its loss curve
+    and step time."""
+    import tempfile
+
+    script = Path(__file__).resolve().parent / "examples" / "lm_train_torch.py"
+    check(script.exists(), f"train_families: {script} is missing")
+    curve, resumed = [], False
+    with tempfile.TemporaryDirectory() as d:
+        for steps in EX_STEPS:
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, str(script), "--steps",
+                                  str(steps)], cwd=d, capture_output=True,
+                                 text=True, timeout=600)
+            if out.returncode != 0:
+                fail(f"train_families: the example exited "
+                     f"{out.returncode}: {out.stderr[-2000:]}")
+            resumed |= f"resumed from step {EX_STEPS[0]}" in out.stdout
+            curve += [(int(s), float(l), float(t))
+                      for s, l, t in STEP_LINE.findall(out.stdout)]
+            print(f"train_families: example --steps {steps}: "
+                  f"{out.stdout.splitlines()[0]}; "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        ckpts = sorted(os.listdir(f"{d}/artifacts/ckpt_demo"))
+    check(resumed and [s for s, _, _ in curve] == list(range(EX_STEPS[1])),
+          f"train_families: the example's steps {[s for s, _, _ in curve]}")
+    losses = [l for _, l, _ in curve]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train_families: the example's losses {losses}")
+    ms = statistics.median(t for _, _, t in curve[1:EX_STEPS[0]])
+    print(f"train_families: example (4 x 256 tokens a step) loss by step "
+          + " ".join(f"{s}:{l:.4f}" for s, l, _ in curve[::5])
+          + f", last {losses[-1]:.4f}; median step {ms:.1f} ms (host clock, "
+          f"the launcher's); checkpoints {ckpts} | {smi}", flush=True)
+    return dict(losses=losses, median_ms=ms)
+
+
+def train_families(mr, smi):
+    """Phase 19: the registry's non-MoE configurations trained at full
+    width, the launcher's restart, one-layer full-width train steps
+    against the CPU port, and the training example.  Returns (a)'s rows."""
+    import gc
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    check(base < 1e9, f"train_families: {base / 1e9:.2f} GB still allocated "
+          "before the phase")
+    rows = [train_family(mr, arch, smi, base) for arch in TRAIN_FAMILIES]
+    launcher_families(mr)
+    train_chain_full(mr)
+    example_run(smi)
+    busy = lambda r: ("not measured" if r["busy"] is None else
+                      f"{r['busy']:.2%} (profiler on)")
+    print("train_families: " + "; ".join(
+        f"{r['arch']} ({r['cut']}) {r['median_ms']:.3f} ms a step, "
+        f"{r['tokens_per_s']:,.1f} tokens/s, MFU {r['mfu']:.4%}, peak "
+        f"{r['peak_gb']:.2f} GB, AdamW {r['optimizer_share']:.2%}, busy "
+        f"{busy(r)}, {r['seconds']:.1f} s" for r in rows), flush=True)
+    print(f"train_families: phase 19 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -3360,6 +3767,7 @@ def main():
                                   launches=kimi["launches"]["moe_plan"],
                                   plan=kimi["plan"])
     kernels[3]["sharded"] = sharding(mr, smi, train)
+    train_families(mr, smi)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

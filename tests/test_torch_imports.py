@@ -78,3 +78,55 @@ def test_quickstart_torch_runs_on_the_cpu():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "switch recovered from WALs" in out.stdout
+
+
+def _reference_demo_count():
+    """``repro.models.params.count_params`` of the reference example's
+    ``CFG_100M`` (examples/lm_train.py, loaded from its file)."""
+    import importlib.util
+
+    from repro.models import lm
+    from repro.models.params import count_params
+    spec = importlib.util.spec_from_file_location(
+        "lm_train_reference", ROOT / "examples" / "lm_train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return count_params(lm.build_defs(mod.CFG_100M))
+
+
+def test_lm_train_torch_runs_on_the_cpu(tmp_path):
+    """The training example on the CPU at a tiny batch: it exits 0,
+    writes its checkpoint under the working directory and prints the
+    reference example's parameter count."""
+    pytest.importorskip("jax")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    script = str(ROOT / "examples" / "lm_train_torch.py")
+    out = subprocess.run([sys.executable, script, "--steps", "2", "--batch",
+                          "1", "--seq", "16", "--device", "cpu"], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    n = _reference_demo_count()
+    assert f"training demo-100m: {n / 1e6:.1f}M params, 2 steps" in out.stdout
+    assert "step     1 loss" in out.stdout
+    ckpt = tmp_path / "artifacts" / "ckpt_demo" / "step_00000002"
+    assert (ckpt / ".complete").exists()
+
+
+def test_lm_train_torch_defaults_to_cuda(monkeypatch, tmp_path):
+    """Without --device the example asks for cuda: it raises where there
+    is none and never falls back to the CPU."""
+    import importlib.util
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists")
+    spec = importlib.util.spec_from_file_location(
+        "lm_train_torch", ROOT / "examples" / "lm_train_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.chdir(tmp_path)
+    # main() registers its config here; the test's teardown removes it
+    monkeypatch.setitem(sys.modules, "repro_torch.configs.demo_100m", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--steps", "1"])
+    assert not (tmp_path / "artifacts").exists()

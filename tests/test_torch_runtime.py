@@ -72,12 +72,13 @@ def test_data_pipeline_deterministic_and_sharded():
 
 # ----------------------------------------------------------------- plans --
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "yi_34b",
-                                  "zamba2_2p7b", "kimi_k2_1t_a32b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_make_plan_matches_jax_on_one_device(arch):
     """``make_plan`` at data-parallel size 1 against the reference's on a
     1 x 1 mesh: microbatch and the resolved ParallelConfig, for every
-    shape and with a forced microbatch; MoE takes int8 moments."""
+    shape and with a forced microbatch; on the launcher's plan (8 x 512)
+    MoE takes int8 moments and every other family float32, one
+    microbatch."""
     mesh = jax.make_mesh((1, 1), ("data", "model"))
     for js, ts in zip(J_SHAPES, SHAPES):
         for kw in (dict(), dict(microbatch=4), dict(moment_dtype="bfloat16")):
@@ -87,9 +88,10 @@ def test_make_plan_matches_jax_on_one_device(arch):
             assert dataclasses.asdict(tp.parallel) == \
                 dataclasses.asdict(jp.parallel), (js.name, kw)
             assert tp.describe() == jp.describe()
-    moe = Sh.make_plan(get(ARCH), ShapeConfig("c", "train", 512, 8), None,
-                       ParallelConfig(remat="none", microbatch=1))
-    assert (moe.microbatch, moe.parallel.moment_dtype) == (1, "int8")
+    plan = Sh.make_plan(get(arch), ShapeConfig("c", "train", 512, 8), None,
+                        ParallelConfig(remat="none", microbatch=1))
+    want = "int8" if get(arch).family == "moe" else "float32"
+    assert (plan.microbatch, plan.parallel.moment_dtype) == (1, want)
 
 
 # ----------------------------------------------------------- checkpoints --
