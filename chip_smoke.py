@@ -137,7 +137,27 @@ Phases (each one exits non-zero on failure):
               published widths in float32, a train step's loss and
               gradients on the card against the CPU port; then
               ``examples/lm_train_torch.py`` on the card, 30 steps and a
-              resume to 60.
+              resume to 60;
+20. durability — P4DB's durability and contention-resilience paths at
+              full width, each against a CPU port cluster: (a) the
+              crash points mid_group_dispatch (sync and async),
+              undrained_async, torn_tail, mid_migration (under an
+              EpochController) and mid_failover on phase 4's YCSB-A
+              cluster with a warm standby, each recovered to the CPU
+              port's state and to an uncrashed card cluster of the
+              surviving txns, every WAL verified, a further batch equal;
+              (b) checkpoint_interval 0 / 512 / 128 / 32 on the 8 x 256
+              stream: checkpoints and their cost, recover_switch's
+              replay and seconds, fail_over replaying exactly the sends
+              since the last checkpoint, and ``python -m
+              repro_torch.db.wal verify`` on a saved WAL; (c) brown-out
+              on YCSB-A and TPC-C at 32 warehouses (the reloads: one
+              single-CTA switch_txn at N = 8,192, the large-N route at
+              N = 32,768), equal to a cluster without it, and the
+              demotion cap; (d) the ContentionArena on both storms,
+              NO_WAIT / WAIT_DIE, early abort off / on (one B = 1
+              switch_txn_smem launch per hot or warm dispatch); (e) the
+              Prometheus export against the CPU port's.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -147,6 +167,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -3699,6 +3720,546 @@ def train_families(mr, smi):
     return rows
 
 
+# --------------------------------------------------------------- phase 20 --
+
+CKPT_INTERVALS = (0, 512, 128, 32)  # benchmarks/common.py:294
+CKPT_CHUNK = 64                     # txns per run_batch there (:291)
+# (point, async_hot, FaultPlan arguments, Cluster arguments)
+CRASH_CASES = (
+    ("mid_group_dispatch", False, dict(after=2), {}),
+    ("mid_group_dispatch", True, dict(after=2), {}),
+    ("undrained_async", True, dict(after=3), dict(max_inflight=4)),
+    ("torn_tail", False, dict(after=2, tear_records=2, tear_node=0), {}),
+    ("mid_migration", False, {}, {}),
+    ("mid_failover", False, {}, {}),
+)
+STORMS = ("ycsb_a_storm", "tpcc_payment_storm")
+
+
+def _same_state(a, b, what):
+    _same_clusters(a, b, what)
+    check(_stores(a) == _stores(b), f"{what}: node stores differ")
+
+
+def _ycsb_setup():
+    """Phase 4's configuration: the switch, its 400-key hot index, and a
+    stream of 8 x 256 YCSB-A txns plus one batch more."""
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import SwitchConfig
+    from repro_torch.workloads import ycsb
+
+    cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K)
+    p = ycsb.YCSBParams(variant="A")
+    sample = ycsb.generate(np.random.default_rng(SEED), 4000, p)
+    hi = build_hot_index(ycsb.traces(sample), top_k=400, switch=cfg)
+    txns = ycsb.generate(np.random.default_rng(SEED + 1), 9 * B, p)
+    return cfg, hi, txns[:8 * B], txns[8 * B:]
+
+
+def _feed(c, txns, chunk=B):
+    for b in range(0, len(txns), chunk):
+        c.run_batch(copy.deepcopy(txns[b:b + chunk]))
+
+
+def _crashed(c, point, what, fn):
+    """Run ``fn`` and return the context of the SimulatedCrash it must
+    raise at ``point``."""
+    from repro_torch.db.faults import SimulatedCrash
+    try:
+        fn()
+    except SimulatedCrash as e:
+        check(e.point == point, f"{what}: crashed at {e.point}")
+        return e.ctx
+    fail(f"{what}: the armed {point} never fired")
+
+
+def crash_case(cfg, hi, txns, more, point, async_hot, plan, kw):
+    """One crash point on a card cluster and a CPU port cluster under the
+    same plan and txns: the crash fires at the armed point, recovery
+    replays the same sends into equal state, the registers equal an
+    uncrashed card cluster that ran only the txns whose sends survived
+    (tests/test_durability.py:110-118), every WAL verifies, and the
+    recovered clusters commit a further batch alike.  Returns the
+    clusters and the card's recovery seconds."""
+    from repro_torch.core.heat import HeatTracker
+    from repro_torch.db import migrate as mig
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.db.faults import FaultPlan, SwitchUnavailable
+
+    what = f"durability (a) {point}{' async' if async_hot else ''}"
+    runs = []
+    for dev in ("cuda", "cpu"):
+        c = Cluster(8, cfg, hi, switch_mode="pallas", standby=True,
+                    async_hot=async_hot, device=dev,
+                    fault_plan=FaultPlan(point, **plan), **kw)
+        c.snapshot_offload()
+        if point == "mid_migration":
+            mig._MIG_TID = itertools.count(1 << 40)
+            mig.EpochController(c, HeatTracker(window=1024, decay=0.2),
+                                interval=512, top_k=400)
+        if point == "mid_failover":
+            _feed(c, txns[:4 * B])
+            c.drain()
+            ctx = _crashed(c, point, what, c.fail_over)
+            check(c._standby is None and c._switch_down,
+                  f"{what}: the standby survived the double fault")
+        else:
+            ctx = _crashed(c, point, what, lambda: _feed(c, txns))
+        check(c._switch_down and not c._inflight,
+              f"{what}: the switch is up or handles survived the crash")
+        evicted = sorted(c._mid_migration_evicted)
+        avail = None
+        if point == "mid_migration":
+            live = next(k for k in sorted(hi.placement.slot)
+                        if k not in c._mid_migration_evicted)
+            try:
+                c.read(live)
+                avail = "served"
+            except SwitchUnavailable:
+                avail = [c.read(k) for k in evicted]
+        old = c.switch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = c.recover_switch()
+        torch.cuda.synchronize()
+        t_rec = time.perf_counter() - t0
+        # the crashed engine's queued dispatches run to their end on its
+        # own registers; nothing of it is left waiting
+        old._join()
+        runs.append((c, ctx, evicted, avail, counts, t_rec))
+    (gpu, ctx, evicted, avail, counts, t_rec), cpu_run = runs
+    cpu = cpu_run[0]
+    check((ctx, evicted, avail, counts) == cpu_run[1:5],
+          f"{what}: crash context, evicted keys, availability or replay "
+          f"counts differ from the CPU port: {(ctx, evicted, avail, counts)}"
+          f" vs {cpu_run[1:5]}")
+    if point == "mid_migration":
+        check(evicted and isinstance(avail, list),
+              f"{what}: no evicted key, or a live hot key was served "
+              f"while the switch was down: {avail}")
+    if point in ("mid_group_dispatch", "undrained_async"):
+        check(counts[1] > 0, f"{what}: the lost group replayed as known")
+    _same_state(gpu, cpu, what)
+    sent = {e.tid for n in gpu.nodes for e in n.wal
+            if e.kind == "switch_send"}
+    survivors = [t for t in txns if t.tid in sent]
+    ref = Cluster(8, cfg, hi, switch_mode="pallas", device="cuda")
+    ref.snapshot_offload()
+    _feed(ref, survivors)
+    check(np.array_equal(gpu.switch.read_all(), ref.switch.read_all()),
+          f"{what}: registers after recovery differ from an uncrashed "
+          f"cluster of the {len(survivors)} surviving txns")
+    wals = gpu.verify_wals()
+    check(wals == cpu.verify_wals(), f"{what}: verify_wals differs")
+    out = [c.run_batch(copy.deepcopy(more)) for c in (gpu, cpu)]
+    for c in (gpu, cpu):
+        c.drain()
+    check(out[0] == out[1], f"{what}: the batch after recovery differs")
+    _same_state(gpu, cpu, f"{what}, after recovery and a further batch")
+    shown = ", ".join(f"{k} {len(v) if isinstance(v, list) else v}"
+                      for k, v in ctx.items())
+    print(f"durability (a) {point}{' async' if async_hot else ''}: crash "
+          f"raised at the armed point ({shown}); recover_switch replayed "
+          f"{counts[0]} known + {counts[1]} "
+          f"unknown sends in {t_rec:.4f} s; registers equal an uncrashed "
+          f"cluster of the {len(survivors)} surviving txns; "
+          f"{sum(w['records'] for w in wals)} WAL records verify on "
+          f"{len(wals)} nodes"
+          + (f"; {len(evicted)} evicted keys read from their stores while "
+             "the switch was down, live hot keys unavailable"
+             if point == "mid_migration" else "")
+          + "; registers, replay counts, stats, stores and WAL heads equal "
+          "to the CPU port, also after a further batch", flush=True)
+    return gpu, cpu, t_rec
+
+
+def bounded_recovery(cfg, hi, txns):
+    """The 8 x 256 stream at each checkpoint interval of the reference's
+    sweep, admitted in its 64-txn chunks (a checkpoint is due after a hot
+    group: at 256 txns every group would cross 128 and 32), in two passes
+    (the sweep, then the sweep reversed: host times drift within a call):
+    checkpoints and their cost, recover_switch's replay and seconds, and
+    warm-standby takeover, which must replay exactly the sends logged
+    since the last checkpoint."""
+    from repro_torch.db.dbms import Cluster
+
+    rows, regs = [], None
+    for interval in CKPT_INTERVALS + CKPT_INTERVALS[::-1]:
+        c = Cluster(8, cfg, hi, switch_mode="pallas", standby=True,
+                    checkpoint_interval=interval, device="cuda")
+        c.snapshot_offload()
+        ck, real = [], c.checkpoint
+
+        def timed(*a, real=real, ck=ck, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            ck.append(time.perf_counter() - t0)
+            return out
+
+        c.checkpoint = timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _feed(c, txns, CKPT_CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del c.checkpoint
+        before, since = c.switch.read_all(), c._sends_since_ckpt
+        check(regs is None or np.array_equal(before, regs),
+              f"durability (b): registers at interval {interval} differ")
+        regs = before
+        c.crash_switch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        known, unknown = c.recover_switch()
+        torch.cuda.synchronize()
+        t_rec = time.perf_counter() - t0
+        check(np.array_equal(c.switch.read_all(), before)
+              and known + unknown == since,
+              f"durability (b) interval {interval}: recovery replayed "
+              f"{known}+{unknown} of {since} sends, or its registers differ")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fk, fu = c.fail_over()
+        torch.cuda.synchronize()
+        t_fo = time.perf_counter() - t0
+        check(fk + fu == since and np.array_equal(c.switch.read_all(),
+                                                  before),
+              f"durability (b) interval {interval}: takeover replayed "
+              f"{fk}+{fu} sends, not the {since} since the last checkpoint")
+        rows.append(dict(interval=interval, txn_s=len(txns) / wall,
+                         checkpoints=len(ck), ckpt_s=sum(ck),
+                         replayed=known + unknown, recover_s=t_rec,
+                         takeover_s=t_fo))
+    half = len(CKPT_INTERVALS)
+    base = [rows[0]["txn_s"], rows[-1]["txn_s"]]
+
+    def two(key, r1, r2, fmt):
+        return f"{r1[key]:{fmt}} / {r2[key]:{fmt}}"
+
+    for r1, r2 in zip(rows[:half], rows[:half - 1:-1]):
+        check(r1["replayed"] == r2["replayed"]
+              and r1["checkpoints"] == r2["checkpoints"],
+              f"durability (b) interval {r1['interval']}: the passes differ")
+        ck_ms = (f" ({r1['ckpt_s'] / r1['checkpoints'] * 1e3:.3f} / "
+                 f"{r2['ckpt_s'] / r2['checkpoints'] * 1e3:.3f} ms each)"
+                 if r1["checkpoints"] else "")
+        print(f"durability (b) checkpoint_interval {r1['interval']}, pass "
+              f"1 / 2: {two('txn_s', r1, r2, '.1f')} txn/s "
+              f"({r1['txn_s'] / base[0]:.3f}x / {r2['txn_s'] / base[1]:.3f}x "
+              f"of interval 0) over {len(txns) // CKPT_CHUNK} run_batch; "
+              f"{r1['checkpoints']} checkpoints in "
+              f"{two('ckpt_s', r1, r2, '.4f')} s{ck_ms}; recover_switch "
+              f"replayed {r1['replayed']} sends in "
+              f"{two('recover_s', r1, r2, '.4f')} s; fail_over replayed the "
+              f"same {r1['replayed']} (all since the last checkpoint) in "
+              f"{two('takeover_s', r1, r2, '.4f')} s", flush=True)
+
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        c.nodes[0].wal.save(d)
+        src = str(Path(__file__).resolve().parent / "src")
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.db.wal", "verify", d],
+            capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, PYTHONPATH=src))
+    check(out.returncode == 0, f"durability (b): wal verify exited "
+          f"{out.returncode}: {out.stdout} {out.stderr}")
+    print(f"durability (b): python -m repro_torch.db.wal verify on node "
+          f"0's saved WAL: {out.stdout.strip()}", flush=True)
+    return rows
+
+
+def brownout_case(tk, what, make, txns):
+    """256 txns, enter_brownout, 256 demoted txns, exit_brownout (one
+    logged WRITE dispatch of every evicted key), 256 more, on the card
+    and on the CPU port, beside a card cluster that never browned out.
+    Returns the reload's launches by route and the enter / exit
+    seconds."""
+    gpu, ref, cpu = make("cuda"), make("cuda"), make("cpu")
+    hot = sorted(gpu.hot_index.placement.slot)
+    parts = [txns[i * B:(i + 1) * B] for i in range(3)]
+    for c in (gpu, cpu):
+        c.run_batch(copy.deepcopy(parts[0]))
+    torch.cuda.synchronize()
+    _reset(tk)
+    t0 = time.perf_counter()
+    gpu.enter_brownout()
+    torch.cuda.synchronize()
+    t_enter = time.perf_counter() - t0
+    enter = dict(tk.LAUNCHES)
+    cpu.enter_brownout()
+    for c in (gpu, cpu):
+        c.run_batch(copy.deepcopy(parts[1]))
+    torch.cuda.synchronize()
+    _reset(tk)
+    t0 = time.perf_counter()
+    gpu.exit_brownout()
+    torch.cuda.synchronize()
+    t_exit = time.perf_counter() - t0
+    reload = dict(tk.LAUNCHES)
+    cpu.exit_brownout()
+    for c in (gpu, cpu):
+        c.run_batch(copy.deepcopy(parts[2]))
+        c.drain()
+    for part in parts:
+        ref.run_batch(copy.deepcopy(part))
+    demoted = gpu.stats["demoted_brownout"]
+    check(demoted > 0, f"{what}: no txn was demoted")
+    _same_state(gpu, cpu, what)
+    check(np.array_equal(gpu.switch.read_all(), ref.switch.read_all()),
+          f"{what}: registers differ from a cluster without the brown-out")
+    vals = [c.read_batch(hot) for c in (gpu, ref, cpu)]
+    check(vals[0] == vals[1] == vals[2],
+          f"{what}: hot values differ from a cluster without the brown-out")
+    cold = [{k: v for k, v in n.store.items() if k not in
+             gpu.hot_index.placement.slot} for n in gpu.nodes]
+    check(cold == [{k: v for k, v in n.store.items() if k not in
+                    ref.hot_index.placement.slot} for n in ref.nodes],
+          f"{what}: cold stores differ from a cluster without the "
+          "brown-out")
+    n_pad = 1 << (len(hot) - 1).bit_length()
+    print(f"durability (c) {what}: {len(hot)} hot keys; enter_brownout "
+          f"{t_enter:.4f} s (launches {_nonzero(enter)}), {demoted} txns "
+          f"demoted, exit_brownout {t_exit:.4f} s: one WRITE dispatch of "
+          f"{len(hot)} keys (N = {n_pad} x {K} = {n_pad * K}), launches "
+          f"{_nonzero(reload)}; registers, stats, stores and WAL heads equal "
+          "to the CPU port; registers, hot values and cold stores equal to "
+          "a cluster without the brown-out", flush=True)
+    return gpu, cpu, dict(enter=enter, reload=reload, enter_s=t_enter,
+                          exit_s=t_exit, n=n_pad * K)
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def brownout_cap(gpu, cpu, txns):
+    """A Brownout(demote_cap=64) sheds its 65th demotion with
+    SwitchUnavailable, on the card as on the CPU port."""
+    from repro_torch.db.faults import Brownout, SwitchUnavailable
+    out = []
+    for c in (gpu, cpu):
+        c.enter_brownout(Brownout(demote_cap=64))
+        d0, shed = c.stats["demoted_brownout"], None
+        for t in copy.deepcopy(txns):
+            try:
+                c.run(t)
+            except SwitchUnavailable as e:
+                shed = str(e)
+                break
+        out.append((c.stats["demoted_brownout"] - d0, shed))
+        c.exit_brownout()
+    check(out[0] == out[1] and out[0][0] == 64 and out[0][1],
+          f"durability (c) cap: {out}")
+    _same_state(gpu, cpu, "durability (c) cap")
+    print(f"durability (c) Brownout(demote_cap=64): 64 txns demoted, the "
+          f"65th shed: SwitchUnavailable({out[0][1][:48]}...), as on the "
+          "CPU port", flush=True)
+
+
+ARENA_RETRIES = 24      # benchmarks/bench_contention.py's budget
+# the off/on identity needs runs in which no txn gives up: at 300 txns
+# NO_WAIT still gives one ycsb_a_storm txn up at the reference tests' 64
+ARENA_SAME_RETRIES = 96
+
+
+def _arena(tk, dev, cfg, hi, p, hot, txns, proto, ea, retries):
+    """One ContentionArena run on a fresh cluster; returns the cluster,
+    the ArenaResult, its wall seconds, the launches and the dispatches."""
+    from repro_torch.db.conflict import ContentionArena, RetryPolicy
+    from repro_torch.db.dbms import Cluster
+
+    c = Cluster(p.n_nodes, cfg, hi, protocol=proto, switch_mode="pallas",
+                device=dev)
+    for k in hot:
+        c.load(k, 10)
+    c.snapshot_offload()
+    arena = ContentionArena(c, policy=RetryPolicy.for_protocol(
+        proto, max_retries=retries, seed=1), early_abort=ea)
+    torch.cuda.synchronize()
+    _reset(tk)
+    d0 = c.switch.dispatch_count
+    t0 = time.perf_counter()
+    r = arena.run(copy.deepcopy(txns), workers=16)
+    torch.cuda.synchronize()
+    return (c, r, time.perf_counter() - t0, dict(tk.LAUNCHES),
+            c.switch.dispatch_count - d0)
+
+
+def arena_runs(tk):
+    """The ContentionArena on both storms (benchmarks/bench_contention.py:
+    62-71: StormParams(n_nodes=4), 300 txns, 16 workers, 24 retries;
+    p_hot_txn 0.4 as tests/test_contention.py:386-388 sets it) on the
+    full-width switch in pallas mode, NO_WAIT and WAIT_DIE, early abort
+    off and on, against the CPU port; then off and on again on the card
+    at a budget under which no txn gives up, which must reach the same
+    committed state."""
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import ADD, SwitchConfig
+    from repro_torch.workloads import storms
+
+    cfg = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K)
+    p = storms.StormParams(n_nodes=4, p_hot_txn=0.4)
+    hot = storms.hot_keys(p)
+    hi = build_hot_index([[(k, ADD)] for k in hot], len(hot), cfg)
+    rows = []
+    for storm in STORMS:
+        txns = getattr(storms, storm)(np.random.default_rng(SEED), 300, p)
+        # the retry backoffs hash the tid: number the storm from 0, so its
+        # outcome does not depend on how many txns earlier phases made
+        for i, t in enumerate(txns):
+            t.tid = i
+        for proto in ("NO_WAIT", "WAIT_DIE"):
+            for ea in (False, True):
+                gpu, r, wall, launches, dispatches = _arena(
+                    tk, "cuda", cfg, hi, p, hot, txns, proto, ea,
+                    ARENA_RETRIES)
+                cpu, rc, *_ = _arena(tk, "cpu", cfg, hi, p, hot, txns,
+                                     proto, ea, ARENA_RETRIES)
+                what = f"durability (d) {storm} {proto} early_abort={ea}"
+                check(r == rc, f"{what}: an ArenaResult field differs from "
+                      "the CPU port")
+                _same_state(gpu, cpu, what)
+                check(launches["switch_txn_smem"] == dispatches
+                      and launches["switch_txn"] == 0
+                      and (dispatches > 0) == (storm == "ycsb_a_storm"),
+                      f"{what}: {launches} for {dispatches} dispatches")
+                rows.append(dict(storm=storm, proto=proto, ea=ea,
+                                 committed=len(r.committed),
+                                 gave_up=len(r.gave_up), aborts=r.aborts,
+                                 early_aborts=r.early_aborts,
+                                 wounds=r.wounds, wasted_ops=r.wasted_ops,
+                                 p99=r.percentile(0.99), ticks=r.ticks,
+                                 wall_s=wall,
+                                 launches=launches["switch_txn_smem"]))
+            (off, r_off, *_), (on, r_on, *_) = (
+                _arena(tk, "cuda", cfg, hi, p, hot, txns, proto, ea,
+                       ARENA_SAME_RETRIES) for ea in (False, True))
+            what = (f"durability (d) {storm} {proto} at "
+                    f"{ARENA_SAME_RETRIES} retries")
+            check(not r_off.gave_up and not r_on.gave_up,
+                  f"{what}: {len(r_off.gave_up)} / {len(r_on.gave_up)} "
+                  "txns gave up (early abort off / on)")
+            check(r_off.committed == r_on.committed
+                  and _stores(off) == _stores(on)
+                  and np.array_equal(off.switch.read_all(),
+                                     on.switch.read_all()),
+                  f"{what}: early abort off and on reach different "
+                  "committed states")
+            print(f"{what}: early abort off and on commit all "
+                  f"{len(r_on.committed)} txns into equal registers and "
+                  f"stores ({r_on.early_aborts} early aborts on)",
+                  flush=True)
+    for r in rows:
+        print(f"durability (d) {r['storm']} {r['proto']} early_abort="
+              f"{r['ea']}: {r['committed']} committed, {r['gave_up']} gave "
+              f"up, {r['aborts']} aborts ({r['early_aborts']} early, "
+              f"{r['wounds']} wounds), wasted ops {r['wasted_ops']}, p99 "
+              f"{r['p99']:.0f} ticks of {r['ticks']}, wall {r['wall_s']:.4f}"
+              f" s, switch_txn_smem launches {r['launches']} (one per hot "
+              f"or warm dispatch); every ArenaResult field, registers, "
+              f"stores and WAL heads equal to the CPU port", flush=True)
+    return rows
+
+
+def _export_families(text):
+    """Counter and gauge families whole, histograms by their observation
+    counts (their values are wall-clock seconds)."""
+    from repro_torch.obs.export import parse_prometheus
+    out = {}
+    for name, fam in parse_prometheus(text).items():
+        samples = fam["samples"]
+        if fam["type"] == "histogram":
+            samples = [s_ for s_ in samples if s_[0].endswith("_count")]
+        out[name] = (fam["type"], sorted(
+            (n, sorted(lbl.items()), v) for n, lbl, v in samples))
+    return out
+
+
+def telemetry(gpu, cpu):
+    """export_metrics() of a crashed and recovered card cluster parses
+    under the strict parser, with counter and gauge families and
+    histogram counts equal to the CPU port's."""
+    from repro_torch.obs.export import parse_prometheus
+    text = gpu.export_metrics()
+    fams = _export_families(text)
+    check(fams == _export_families(cpu.export_metrics()),
+          "durability (e): exported families differ from the CPU port")
+    hist = {name: sum(v for n, _, v in fam["samples"]
+                      if n.endswith("_sum"))
+            for name, fam in parse_prometheus(text).items()
+            if fam["type"] == "histogram"}
+    n_counters = sum(t == "counter" for t, _ in fams.values())
+    print(f"durability (e): export_metrics() {len(text)} bytes, "
+          f"{len(fams)} families ({n_counters} counters) parse under the "
+          "strict parser, counters, gauges and histogram counts equal to "
+          "the CPU port; wall-clock histogram sums (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(hist.items())),
+          flush=True)
+
+
+def durability(tk, smi):
+    """Phase 20: P4DB's durability and contention-resilience paths at full
+    width, each against a CPU port cluster: (a) the crash-point matrix,
+    (b) recovery bounded by the checkpoint interval and warm-standby
+    takeover, (c) brown-out on YCSB-A and TPC-C, (d) the ContentionArena,
+    (e) the telemetry export."""
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import tpcc
+
+    t_phase = time.perf_counter()
+    cfg, hi, txns, more = _ycsb_setup()
+    rec_s, first = {}, None
+    for point, async_hot, plan, kw in CRASH_CASES:
+        gpu, cpu, rec_s[(point, async_hot)] = crash_case(
+            cfg, hi, txns, more, point, async_hot, plan, kw)
+        first = first or (gpu, cpu)
+    bounded = bounded_recovery(cfg, hi, txns)
+
+    def ycsb_cluster(dev):
+        c = Cluster(8, cfg, hi, switch_mode="pallas", device=dev)
+        c.snapshot_offload()
+        return c
+
+    tp = tpcc.TPCCParams(n_nodes=8, n_warehouses=32, dist_frac=0.2)
+    top_k = tp.n_warehouses * (1 + 2 * tpcc.N_DISTRICTS + tpcc.HOT_ITEMS)
+    thi = build_hot_index(tpcc.traces(tpcc.generate(
+        np.random.default_rng(SEED), 5000, tp)), top_k=top_k, switch=cfg)
+
+    def tpcc_cluster(dev):
+        c = Cluster(8, cfg, thi, switch_mode="pallas", device=dev)
+        c.snapshot_offload()
+        return c
+
+    ygpu, ycpu, yb = brownout_case(tk, "ycsb_a", ycsb_cluster, txns)
+    brownout_cap(ygpu, ycpu, more)
+    tt = tpcc.generate(np.random.default_rng(SEED + 1), 3 * B, tp)
+    _, _, tb = brownout_case(tk, "tpcc", tpcc_cluster, tt)
+    check(yb["reload"]["switch_txn_smem"] == 1
+          and yb["reload"]["switch_txn"] == 0,
+          f"durability (c): the YCSB-A reload (N = {yb['n']}) left the "
+          f"single-CTA route: {yb['reload']}")
+    check(tb["reload"]["switch_txn"] == 1
+          and tb["reload"]["switch_txn_smem"] == 0
+          and tb["reload"]["result_gather"] >= 1,
+          f"durability (c): the TPC-C reload (N = {tb['n']}) did not take "
+          f"the large-N route: {tb['reload']}")
+    check(yb["enter"]["result_gather"] == tb["enter"]["result_gather"] == 1,
+          "durability (c): enter_brownout's read_batch is not one "
+          f"result_gather launch: {yb['enter']} / {tb['enter']}")
+    arena = arena_runs(tk)
+    telemetry(*first)
+    took = time.perf_counter() - t_phase
+    print(f"durability [{smi}]: phase 20 took {took:.1f} s", flush=True)
+    return dict(recover_s={f"{p}{'/async' if a else ''}": round(s_, 4)
+                           for (p, a), s_ in rec_s.items()},
+                bounded=bounded, ycsb_brownout=yb, tpcc_brownout=tb,
+                arena=arena, seconds=took)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -3768,6 +4329,15 @@ def main():
                                   plan=kimi["plan"])
     kernels[3]["sharded"] = sharding(mr, smi, train)
     train_families(mr, smi)
+    dur = durability(tk, smi)
+    kernels[0]["durability"] = dict(
+        brownout_reload={w: _nonzero(dur[f"{w}_brownout"]["reload"])
+                         for w in ("ycsb", "tpcc")},
+        arena_launches=sum(r["launches"] for r in dur["arena"]))
+    kernels[1]["durability"] = dict(
+        brownout_enter={w: dur[f"{w}_brownout"]["enter"]["result_gather"]
+                        for w in ("ycsb", "tpcc")},
+        tpcc_reload=dur["tpcc_brownout"]["reload"]["result_gather"])
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -82,6 +82,14 @@ SYSTEMS = {
                     pipeline_depth=2, nic_line_rate=1.25e9),
     "wait_die_ea": dict(kind="p4db", protocol="WAIT_DIE", early_abort=True,
                         drop_on_abort=False),
+    # the durability mirror (tests/test_durability.py:468-491): a switch
+    # crash with warm-standby takeover, without and with the checkpoint
+    # daemon, under the Timing knobs that price the takeover
+    "failover": dict(kind="p4db", max_batch=8, crash_at=1.5e-3),
+    "failover_ckpt": dict(kind="p4db", max_batch=8, crash_at=1.5e-3,
+                          ckpt_interval=0.4e-3,
+                          timing=dict(t_failover=200e-6,
+                                      t_replay_send=1e-6)),
 }
 
 
@@ -89,14 +97,18 @@ SYSTEMS = {
 @pytest.mark.parametrize("workload", ["ycsb", "tpcc"])
 def test_cluster_sim_matches_jax(workload, system):
     jp, tp = _profiles(workload)
-    out = [model.ClusterSim(profs, N_NODES, 8,
-                            model.SystemConfig(**SYSTEMS[system]),
-                            timing=model.Timing(), seed=3,
+    kw = dict(SYSTEMS[system])
+    timing = kw.pop("timing", {})
+    out = [model.ClusterSim(profs, N_NODES, 8, model.SystemConfig(**kw),
+                            timing=model.Timing(**timing), seed=3,
                             sim_time=SIM_TIME, warmup=SIM_TIME / 5).run()
            for model, profs in ((j_model, jp), (t_model, tp))]
     assert out[0] == out[1]
     assert out[1]["throughput"] > 0
     assert ("early_abort" in out[1]) == (system == "wait_die_ea")
+    assert ("failover" in out[1]) == system.startswith("failover")
+    if system == "failover_ckpt":
+        assert out[1]["ckpts_taken"] > 0
 
 
 def test_dynamic_cluster_sim_matches_jax():
@@ -121,3 +133,39 @@ def test_dynamic_cluster_sim_matches_jax():
         out.append(cs.run())
     assert out[0] == out[1]
     assert out[1]["reconfigs"] >= 1
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(gate_t_reconfig=1.0),
+    dict(gate_t_reconfig=1e-9),
+    dict(partial_availability=True),
+    dict(gate_t_reconfig=1e-9, partial_availability=True, crash_at=2e-3,
+         ckpt_interval=0.4e-3)])
+def test_dynamic_cluster_sim_durability_knobs_match_jax(knobs):
+    """The migration gate and partial availability of the durability
+    mirror (tests/test_durability.py:494-531) on a dynamic RotatingZipf
+    run whose old hot keys keep tail traffic, under a long reconfiguration
+    pause (2 ms), so that both act."""
+    out = []
+    for drift, build, sw, model, tracker in (
+            (j_drift, j_build_hot_index, JSwitchConfig(**SWITCH), j_model,
+             JHeatTracker),
+            (t_drift, build_hot_index, SwitchConfig(**SWITCH), t_model,
+             THeatTracker)):
+        gen = drift.RotatingZipf(n_nodes=N_NODES, period=2e-3)
+        hi = build(drift.traces(
+            gen.sample_phase(np.random.default_rng(0), 0, 2000)), 200, sw)
+        cs = model.ClusterSim(
+            [], N_NODES, 20, model.SystemConfig(
+                kind="p4db", reconfig_interval=0.4e-3, **knobs),
+            timing=model.Timing(t_reconfig=2e-3), seed=0, sim_time=5e-3,
+            warmup=0.25e-3, dynamic=gen, hot_index=hi, switch_cfg=sw,
+            tracker=tracker(decay=0.1), reconfig_top_k=200)
+        out.append(cs.run())
+    assert out[0] == out[1]
+    if knobs.get("gate_t_reconfig") == 1.0:
+        assert out[1]["reconfigs"] == 0 and out[1]["reconfigs_gated"] > 0
+    else:
+        assert out[1]["reconfigs"] >= 1
+    if knobs.get("partial_availability"):
+        assert out[1]["partial_served"] > 0
