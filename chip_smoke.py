@@ -38,8 +38,9 @@ Phases (each one exits non-zero on failure):
 8. async    — ``read_batch`` on an ``async_hot`` cluster with undrained
               groups in flight, against the CPU port;
 9. cadd     — SmallBank without ADDP (CADD constraints) on the card in
-              ``pallas`` mode and in ``auto`` mode (the serial engine),
-              against the CPU port;
+              ``pallas`` mode and in ``auto`` mode (its CADD groups on the
+              serial walk kernel, which must have launched), against the
+              CPU port;
 10. profile — one more YCSB batch under ``torch.profiler`` for the device's
               busy share; one hot dispatch alone, which must be one
               device kernel, the single-CTA switch_txn; one pruned
@@ -157,7 +158,23 @@ Phases (each one exits non-zero on failure):
               demotion cap; (d) the ContentionArena on both storms,
               NO_WAIT / WAIT_DIE, early abort off / on (one B = 1
               switch_txn_smem launch per hot or warm dispatch); (e) the
-              Prometheus export against the CPU port's.
+              Prometheus export against the CPU port's; every recovery
+              and takeover replay reports its launches by route (one walk
+              launch a send);
+21. walk    — the reference's compiled switch engines (serial, staged,
+              affine) as the walk kernel: (a) each mode against its plain
+              version at N = 1, 16, 4,096, 8,192, 8,193 and 32,768 on
+              streams with every opcode, stray and negative slots and
+              int32 wrap (registers, res, ok, compact equal; the route
+              each N takes); (b) CUDA-event time per call and bare beside
+              the plain version and the bytes bound; (c) one auto dispatch
+              at N = 4,096 under the profiler: one device kernel, no
+              device -> host copy (run right after phase 10's profiles);
+              (d) ``switch_mode="auto"`` at full
+              width against CPU port clusters: YCSB-A 8 x 256 and its
+              recovery, sharded n = 2 beside n = 1, a safe-ADDP staged
+              stream at B = 256, and the TPC-C brown-out whose N = 32,768
+              reload takes the large route.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -296,7 +313,10 @@ def _ptxas_lines(log: str):
             for tag in ("switch_txn_smem_kernel", "switch_txn_kernel",
                         "result_gather_kernel", "scan_prune_kernel",
                         "scan_block_agg_kernel", "scan_block_write_kernel",
-                        "moe_route_kernel", "moe_plan_kernel"):
+                        "moe_route_kernel", "moe_plan_kernel",
+                        "switch_walk_smem_kernel", "switch_walk_prep_kernel",
+                        "switch_walk_link_kernel",
+                        "switch_walk_writeback_kernel", "switch_walk_kernel"):
                 if tag in name:
                     tail = name.split(tag)[1]
                     tmpl = (re.findall(r"Li(\d+)E", tail)
@@ -923,8 +943,7 @@ def main_path(tk, label):
     print(f"main: setup {time.perf_counter() - t0:.1f} s "
           f"({len(hi.placement.slot)} hot keys)", flush=True)
 
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
+    _reset(tk)
     out_gpu, times = [], []
     for b in range(8):
         batch = txns[b * B:(b + 1) * B]
@@ -953,9 +972,13 @@ def main_path(tk, label):
     t0 = time.perf_counter()
     known, unknown = gpu.crash_switch_and_recover()
     t_rec = time.perf_counter() - t0
-    rec_launches = dict(tk.LAUNCHES)
+    rec_launches = _nonzero(_counts(tk))
     check(before.tobytes() == gpu.switch.read_all().tobytes(),
           "main: registers after crash recovery differ")
+    check(rec_launches.get("switch_walk_smem.affine", 0) == known + unknown
+          and set(rec_launches) == {"switch_walk_smem.affine"},
+          f"main: the replay of {known}+{unknown} sends launched "
+          f"{rec_launches}, not one affine walk a send")
 
     spans = _span_totals(_batch_traces(gpu))
     total = sum(times)
@@ -969,18 +992,42 @@ def main_path(tk, label):
           + ", ".join(f"{k} {v:.4f}" for k, v in spans.items())
           + f", rest {total - sum(spans.values()):.4f}", flush=True)
     # the replay runs each send in auto mode (Cluster._replay_into, as
-    # the reference does): the affine engine in torch ops, no kernel
+    # the reference does): one affine walk launch a send
     print(f"main: crash_switch_and_recover replayed {known}+{unknown} sends "
-          f"in {t_rec:.2f} s, registers identical; kernel launches "
+          f"in {t_rec:.4f} s ({t_rec / max(known + unknown, 1) * 1e3:.3f} "
+          f"ms a send), registers identical; kernel launches "
           f"{rec_launches}", flush=True)
     return launches, gpu, cpu, hi, p, len(txns) / total
 
 
 # ---------------------------------------------------------------- phase 5 --
 
+def _walk_module():
+    from repro_torch.kernels.switch_engine import switch_engine as kw
+    return kw
+
+
+def _tk():
+    from repro_torch.kernels.switch_txn import switch_txn as tk
+    return tk
+
+
+def _by_route(launches):
+    """Launch counts with the walk's modes summed, by route."""
+    return _walk_module().by_route(launches)
+
+
 def _reset(tk):
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
+    """Every launch counter of the P4DB kernels to 0: switch_txn's and the
+    switch-engine walk's."""
+    for counts in (tk.LAUNCHES, _walk_module().LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _counts(tk):
+    """A copy of every launch counter of the P4DB kernels."""
+    return {**tk.LAUNCHES, **_walk_module().LAUNCHES}
 
 
 def _scans_equal(a, b, cases, what):
@@ -1251,16 +1298,24 @@ def cadd_path(tk):
     _reset(tk)
     out_gpu, t_gpu = run(gpu)
     launches = dict(tk.LAUNCHES)
+    _reset(tk)
     out_auto, t_auto = run(auto)
+    auto_launches = _nonzero(_counts(tk))
     out_cpu, _ = run(cpu)
     check(launches["switch_txn_smem"] > 0, "cadd: switch_txn not launched")
+    check(auto_launches.get("switch_walk_smem.serial", 0) > 0
+          and not any(k.startswith("switch_txn") for k in auto_launches),
+          f"cadd: auto mode did not run its CADD groups on the serial "
+          f"walk: {auto_launches}")
     check(out_gpu == out_cpu, "cadd: per-txn results differ from CPU port")
     check(out_auto == out_cpu, "cadd: auto-mode results differ from CPU port")
     _same_clusters(gpu, cpu, "cadd")
     _same_clusters(auto, cpu, "cadd auto")
     print(f"cadd: {len(txns)} SmallBank txns ({gpu.stats['hot']} hot) equal "
-          f"to the CPU port; launches {launches}; run_batch total pallas "
-          f"{t_gpu:.4f} s, auto (serial engine) {t_auto:.4f} s", flush=True)
+          f"to the CPU port; launches {launches}, auto {auto_launches}; "
+          f"run_batch total pallas {t_gpu:.4f} s, auto (the walk kernel) "
+          f"{t_auto:.4f} s", flush=True)
+    return dict(pallas_s=t_gpu, auto_s=t_auto, auto_launches=auto_launches)
 
 
 # --------------------------------------------------------------- phase 10 --
@@ -3819,10 +3874,13 @@ def crash_case(cfg, hi, txns, more, point, async_hot, plan, kw):
                 avail = [c.read(k) for k in evicted]
         old = c.switch
         torch.cuda.synchronize()
+        _reset(_tk())
         t0 = time.perf_counter()
         counts = c.recover_switch()
         torch.cuda.synchronize()
         t_rec = time.perf_counter() - t0
+        if dev == "cuda":
+            replay = _nonzero(_counts(_tk()))
         # the crashed engine's queued dispatches run to their end on its
         # own registers; nothing of it is left waiting
         old._join()
@@ -3861,7 +3919,8 @@ def crash_case(cfg, hi, txns, more, point, async_hot, plan, kw):
     print(f"durability (a) {point}{' async' if async_hot else ''}: crash "
           f"raised at the armed point ({shown}); recover_switch replayed "
           f"{counts[0]} known + {counts[1]} "
-          f"unknown sends in {t_rec:.4f} s; registers equal an uncrashed "
+          f"unknown sends in {t_rec:.4f} s (launches {replay}); registers "
+          f"equal an uncrashed "
           f"cluster of the {len(survivors)} surviving txns; "
           f"{sum(w['records'] for w in wals)} WAL records verify on "
           f"{len(wals)} nodes"
@@ -3870,7 +3929,12 @@ def crash_case(cfg, hi, txns, more, point, async_hot, plan, kw):
              if point == "mid_migration" else "")
           + "; registers, replay counts, stats, stores and WAL heads equal "
           "to the CPU port, also after a further batch", flush=True)
-    return gpu, cpu, t_rec
+    # the crashed async engine's queued switch_txn jobs may finish inside
+    # the window; the replay itself is one walk launch a send
+    walks = _by_route(replay).get("switch_walk_smem", 0)
+    check(walks == sum(counts),
+          f"{what}: the replay of {counts} sends launched {replay}")
+    return gpu, cpu, t_rec, replay
 
 
 def bounded_recovery(cfg, hi, txns):
@@ -3911,27 +3975,53 @@ def bounded_recovery(cfg, hi, txns):
         regs = before
         c.crash_switch()
         torch.cuda.synchronize()
+        _reset(_tk())
         t0 = time.perf_counter()
         known, unknown = c.recover_switch()
         torch.cuda.synchronize()
         t_rec = time.perf_counter() - t0
+        rec_launches = _nonzero(_counts(_tk()))
         check(np.array_equal(c.switch.read_all(), before)
               and known + unknown == since,
               f"durability (b) interval {interval}: recovery replayed "
               f"{known}+{unknown} of {since} sends, or its registers differ")
         torch.cuda.synchronize()
+        _reset(_tk())
         t0 = time.perf_counter()
         fk, fu = c.fail_over()
         torch.cuda.synchronize()
         t_fo = time.perf_counter() - t0
+        fo_launches = _nonzero(_counts(_tk()))
+        check(sum(rec_launches.values()) == known + unknown
+              and sum(fo_launches.values()) == fk + fu
+              and not any(k.startswith("switch_txn") for k in
+                          {**rec_launches, **fo_launches}),
+              f"durability (b) interval {interval}: replays of "
+              f"{known + unknown} / {fk + fu} sends launched "
+              f"{rec_launches} / {fo_launches}")
         check(fk + fu == since and np.array_equal(c.switch.read_all(),
                                                   before),
               f"durability (b) interval {interval}: takeover replayed "
               f"{fk}+{fu} sends, not the {since} since the last checkpoint")
+        if interval == 128 and len(rows) < len(CKPT_INTERVALS):
+            # pass 1 at 128 (checkpoints and a replay of 97 sends): the
+            # same crash, recovery and takeover on the CPU port
+            cpu = Cluster(8, cfg, hi, switch_mode="pallas", standby=True,
+                          checkpoint_interval=interval, device="cpu")
+            cpu.snapshot_offload()
+            _feed(cpu, txns, CKPT_CHUNK)
+            cpu.crash_switch()
+            check(cpu.recover_switch() == (known, unknown)
+                  and cpu.fail_over() == (fk, fu),
+                  f"durability (b) interval {interval}: the CPU port "
+                  "replayed other sends")
+            _same_clusters(c, cpu, f"durability (b) interval {interval} "
+                           "after recovery and takeover")
         rows.append(dict(interval=interval, txn_s=len(txns) / wall,
                          checkpoints=len(ck), ckpt_s=sum(ck),
                          replayed=known + unknown, recover_s=t_rec,
-                         takeover_s=t_fo))
+                         takeover_s=t_fo, recover_launches=rec_launches,
+                         takeover_launches=fo_launches))
     half = len(CKPT_INTERVALS)
     base = [rows[0]["txn_s"], rows[-1]["txn_s"]]
 
@@ -3954,7 +4044,9 @@ def bounded_recovery(cfg, hi, txns):
               f"replayed {r1['replayed']} sends in "
               f"{two('recover_s', r1, r2, '.4f')} s; fail_over replayed the "
               f"same {r1['replayed']} (all since the last checkpoint) in "
-              f"{two('takeover_s', r1, r2, '.4f')} s", flush=True)
+              f"{two('takeover_s', r1, r2, '.4f')} s; replay launches by "
+              f"route {_by_route(r1['recover_launches'])} / "
+              f"{_by_route(r1['takeover_launches'])}", flush=True)
 
     import tempfile
     with tempfile.TemporaryDirectory() as d:
@@ -3988,7 +4080,7 @@ def brownout_case(tk, what, make, txns):
     gpu.enter_brownout()
     torch.cuda.synchronize()
     t_enter = time.perf_counter() - t0
-    enter = dict(tk.LAUNCHES)
+    enter = _counts(tk)
     cpu.enter_brownout()
     for c in (gpu, cpu):
         c.run_batch(copy.deepcopy(parts[1]))
@@ -3998,7 +4090,7 @@ def brownout_case(tk, what, make, txns):
     gpu.exit_brownout()
     torch.cuda.synchronize()
     t_exit = time.perf_counter() - t0
-    reload = dict(tk.LAUNCHES)
+    reload = _counts(tk)
     cpu.exit_brownout()
     for c in (gpu, cpu):
         c.run_batch(copy.deepcopy(parts[2]))
@@ -4212,10 +4304,11 @@ def durability(tk, smi):
 
     t_phase = time.perf_counter()
     cfg, hi, txns, more = _ycsb_setup()
-    rec_s, first = {}, None
+    rec_s, replays, first = {}, {}, None
     for point, async_hot, plan, kw in CRASH_CASES:
-        gpu, cpu, rec_s[(point, async_hot)] = crash_case(
+        gpu, cpu, rec_s[(point, async_hot)], replay = crash_case(
             cfg, hi, txns, more, point, async_hot, plan, kw)
+        replays[(point, async_hot)] = replay
         first = first or (gpu, cpu)
     bounded = bounded_recovery(cfg, hi, txns)
 
@@ -4256,8 +4349,475 @@ def durability(tk, smi):
     print(f"durability [{smi}]: phase 20 took {took:.1f} s", flush=True)
     return dict(recover_s={f"{p}{'/async' if a else ''}": round(s_, 4)
                            for (p, a), s_ in rec_s.items()},
+                replay_launches={f"{p}{'/async' if a else ''}": _by_route(v)
+                                 for (p, a), v in replays.items()},
                 bounded=bounded, ycsb_brownout=yb, tpcc_brownout=tb,
                 arena=arena, seconds=took)
+
+
+# --------------------------------------------------------------- phase 21 --
+
+# (B, K) of each stream the walk kernel is held against its plain version
+# on: N = B x K = 1, 16, 4,096 (the main path's group), WALK_SMEM_MAX, the
+# first N of the large route, and 32,768 (the TPC-C brown-out reload)
+WALK_SHAPES = ((1, 1), (1, 16), (256, 16), (512, 16), (2731, 3), (2048, 16))
+# the serial plain version loops over the stream in Python (a few scalar
+# launches an instruction); beyond this N it runs on the CPU, same inputs
+WALK_SERIAL_PLAIN_ON_CARD = 4096
+
+
+def _walk_stream(rng, mode, B_, K_):
+    """A full-width stream with every opcode ``mode`` takes, a third of it
+    on four hot slots (long chains), 30% on stray slots (past the file or
+    a row, negative within and beyond the file's length, a stage that
+    wraps int32, stage -1, reg -1; the chain of g = -2 writes back onto a
+    hot slot), int32-edge operands and registers, ADDP sources anywhere in
+    the row.  Returns registers [S, R] and op, stage, reg, val [B, K] and
+    idx [N // 2 + 1], int32."""
+    ops = {"serial": (0, 1, 2, 3, 4, 5), "affine": (0, 1, 2, 3),
+           "staged": (0, 1, 2, 3, 5)}[mode]
+    shape = (B_, K_)
+    op = rng.choice(ops, shape).astype(np.int32)
+    st = rng.integers(0, S, shape).astype(np.int32)
+    rg = rng.integers(0, R, shape).astype(np.int32)
+    hot = rng.random(shape) < 0.35
+    hs, hr = np.array([0, 1, S - 1, S - 1]), np.array([-2, 3, R - 1, R - 2])
+    pick = rng.integers(0, 4, int(hot.sum()))
+    st[hot], rg[hot] = hs[pick], hr[pick]
+    stray = rng.random(shape) < 0.3
+    kinds = rng.integers(0, 6, int(stray.sum()))
+    s_st, s_rg = st[stray], rg[stray]
+    s_st = np.where(kinds == 0, S + 2, s_st)
+    s_rg = np.where(kinds == 1, R + 3, s_rg)
+    s_st = np.where(kinds == 2, 0, s_st)
+    s_rg = np.where(kinds == 2, -rng.integers(1, S * R + 3, kinds.size), s_rg)
+    s_st = np.where(kinds == 3, 2**31 // R + 1, s_st)
+    s_st = np.where(kinds == 4, -1, s_st)
+    s_rg = np.where(kinds == 5, -1, s_rg)
+    st[stray], rg[stray] = s_st, s_rg
+    val = rng.integers(-100, 100, shape).astype(np.int32)
+    edge = rng.random(shape) < 0.1
+    val[edge] = rng.choice([2**31 - 1, -2**31, 2**30], int(edge.sum()))
+    addp = op == 5
+    val[addp] = rng.integers(-1, K_ + 1, int(addp.sum()))
+    regs = rng.integers(-1000, 1000, (S, R)).astype(np.int32)
+    regs[0, 0], regs[S - 1, R - 1] = 2**31 - 20, -2**31 + 5
+    idx = rng.integers(-3, B_ * K_ + 8, B_ * K_ // 2 + 1).astype(np.int32)
+    return regs, op, st, rg, val, idx
+
+
+def _walk_rng(mode, n):
+    return np.random.default_rng(SEED + 21 + n + 7 * ("serial", "staged",
+                                                      "affine").index(mode))
+
+
+def walk_kernel_checks(kw, tk, dev):
+    """(a) The walk kernel against its plain version on the card, each
+    mode at every N of WALK_SHAPES: registers, res, ok and compact equal,
+    and the route each N must take.  Returns (max abs error, shared memory
+    by tile)."""
+    from repro_torch.kernels import build
+    lib = build.library("switch_engine")
+    wmax = kw.WALK_SMEM_MAX
+    check(lib.switch_walk_smem_bytes(wmax) > 0
+          and lib.switch_walk_smem_bytes(wmax + 1) == 0,
+          f"WALK_SMEM_MAX={wmax} disagrees with the CUDA source")
+    smem_bytes = {n: lib.switch_walk_smem_bytes(n)
+                  for n in (32, 256, 1024, 4096, wmax)}
+    err, lines = 0, []
+    for mode in kw.MODES:
+        for B_, K_ in WALK_SHAPES:
+            n = B_ * K_
+            regs, op, st, rg, val, idx = _walk_stream(_walk_rng(mode, n),
+                                                      mode, B_, K_)
+            t = lambda a, d=dev: torch.tensor(a, dtype=torch.int32, device=d)
+            _reset(tk)
+            got = kw.switch_walk_gather_call(mode, t(regs), t(op), t(st),
+                                             t(rg), t(val), t(idx))
+            launched = _nonzero(_counts(tk))
+            where = (dev if mode != "serial" or n <= WALK_SERIAL_PLAIN_ON_CARD
+                     else torch.device("cpu"))
+            want = kw.switch_walk_plain(
+                mode, *(t(a, where) for a in (regs, op, st, rg, val, idx)))
+            torch.cuda.synchronize()
+            for name, a, b in zip(("registers", "res", "ok", "compact"), got,
+                                  want):
+                a, b = a.cpu(), b.cpu()
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"walk: {mode} {name} differ from plain at N={n}")
+                if a.numel():
+                    err = max(err, int((a.long() - b.long()).abs().max()))
+            route = "switch_walk_smem" if n <= wmax else "switch_walk"
+            expect = {f"{route}.{mode}": 1}
+            if route == "switch_walk":
+                expect["result_gather"] = 1
+            check(launched == expect, f"walk: {mode} at N={n} launched "
+                  f"{launched}, expected {expect}")
+            lines.append(f"{mode} N={n} {route}"
+                         + (" (plain on the CPU)" if where != dev else ""))
+    print(f"walk (a): equal to plain (registers, res, ok, compact) on "
+          f"{'; '.join(lines)}; shared memory by tile {smem_bytes} bytes",
+          flush=True)
+    return err, smem_bytes
+
+
+def _walk_bound(op, st, rg, n_idx):
+    """(ms, by) of the least time for one dispatch: op/stage/reg/val and
+    idx in, res + ok (bytes) + compact out, one read and one write of each
+    distinct register the stream touches; one RMW per instruction."""
+    g = (st.astype(np.int64) * R + rg).reshape(-1)
+    live = op.reshape(-1) != 0
+    distinct = np.unique(np.clip(np.where(g < 0, g + S * R, g)[live], 0,
+                                 S * R - 1)).size
+    n = op.size
+    return bound_ms(16 * n + 4 * n_idx + 5 * n + 4 * n_idx + 8 * distinct,
+                    n)
+
+
+def walk_timing(kw, tk, dev):
+    """(b) CUDA-event time of each mode per call (the launcher) and bare
+    (the C call alone) at the main path's N = 4,096 and at N = 16 (a B = 1
+    group); the large route at N = 32,768; the plain version at 4,096 and
+    32,768 (serial at 4,096 only); each beside its bytes bound."""
+    rows = {}
+    for mode in kw.MODES:
+        for B_, K_ in ((256, 16), (1, 16), (2048, 16)):
+            n = B_ * K_
+            regs, op, st, rg, val, idx = _walk_stream(_walk_rng(mode, n),
+                                                      mode, B_, K_)
+            t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+            work, op_t, st_t, rg_t, val_t, idx_t = (
+                t(a) for a in (regs, op, st, rg, val, idx))
+            m = idx_t.numel()
+            call = lambda: kw.switch_walk_gather_call(
+                mode, work, op_t, st_t, rg_t, val_t, idx_t)
+            large = n > kw.WALK_SMEM_MAX
+            row = dict(n=n, ms=time_cuda(call, inner=5 if large else 20,
+                                         reps=5 if large else 7))
+            if n <= kw.WALK_SMEM_MAX:
+                res_b = torch.empty_like(op_t)
+                ok_b = torch.empty(op_t.shape, dtype=torch.bool, device=dev)
+                cmp_b = torch.empty_like(idx_t)
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                mid = kw.MODES.index(mode)
+                row["kernel_ms"] = time_cuda(lambda: kw._SMEM(
+                    mid, work.data_ptr(), S, R, K_, op_t.data_ptr(),
+                    st_t.data_ptr(), rg_t.data_ptr(), val_t.data_ptr(), n,
+                    res_b.data_ptr(), ok_b.data_ptr(), idx_t.data_ptr(),
+                    cmp_b.data_ptr(), m, stream), inner=50, reps=7)
+            if n > 16 and (mode != "serial" or n <= 4096):
+                row["plain_ms"] = time_cuda(lambda: kw.switch_walk_plain(
+                    mode, work, op_t, st_t, rg_t, val_t, idx_t),
+                    inner=1, reps=3)
+            row["bound_ms"], row["bound_by"] = _walk_bound(op, st, rg, m)
+            rows[f"{mode}@{n}"] = row
+    print("walk (b): per call / bare / plain (ms), bound: " + "; ".join(
+        f"{k} {r['ms']:.5f} / {r.get('kernel_ms', float('nan')):.5f} / "
+        f"{r.get('plain_ms', float('nan')):.4f}, {r['bound_ms']:.6f} "
+        f"({r['bound_by']})" for k, r in rows.items()), flush=True)
+    return rows
+
+
+def _ycsb_group(rng, cfg, n_rows):
+    """An all-hot {READ, WRITE, ADD} packet batch of ``n_rows`` x K on
+    random in-range slots (auto mode runs it on the affine walk)."""
+    from repro_torch.core.packets import empty_packets
+    p = empty_packets(n_rows, cfg)
+    p["op"] = rng.integers(1, 4, p["op"].shape).astype(np.int32)
+    p["stage"] = rng.integers(0, S, p["op"].shape).astype(np.int32)
+    p["reg"] = rng.integers(0, 512, p["op"].shape).astype(np.int32)
+    p["operand"] = rng.integers(-100, 100, p["op"].shape).astype(np.int32)
+    return p
+
+
+def _host_us(fn, n=51):
+    """Median host-clock microseconds of ``fn()`` over ``n - 1`` calls,
+    each started on an idle card (the first call warms up)."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(out[1:]) * 1e6
+
+
+def walk_profile(tk, cfg):
+    """(c) One auto dispatch at N = 4,096 on a full-width engine under the
+    profiler: exactly one device kernel, the single-CTA walk, and no
+    device -> host copy (nothing is drained); and where its host time
+    goes: ``execute_batch`` with the packet metadata ``build_packets``
+    gives (and in pallas mode), the walk's launcher alone and its bare C
+    call, on an idle card.  main() runs it right after
+    phase 10's profiles: run at the end of the script on the H100, its
+    windows came back empty 1 of 2 times in one run and 3 of 3 in
+    another; an empty window is taken again, up to 6 times."""
+    from repro_torch.core.engine import SwitchEngine
+    eng = SwitchEngine(cfg, device="cuda")
+    pkts = _ycsb_group(np.random.default_rng(SEED + 22), cfg, B)
+    n = pkts["op"].size
+    host = []
+    for _ in range(51):                       # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb = eng.execute_batch(pkts, mode="auto")
+        host.append(time.perf_counter() - t0)
+        pb.results_np()
+    check(pb.mode == "affine", f"walk (c): auto resolved {pb.mode}")
+    host_us = statistics.median(host[1:]) * 1e6
+    dev_us, rows, attempts = _profile_steps(
+        lambda: eng.execute_batch(pkts, mode="auto"), tries=6)
+    kernels = [(t, k, c) for t, k, c in rows
+               if not k.startswith(("Memcpy", "Memset"))]
+    d2h = sum(c for _, k, c in rows if "DtoH" in k)
+    names = "; ".join(f"{k} x{c} {t:.2f} us" for t, k, c in rows)
+    print(f"walk (c) profile [one auto dispatch, B={B}, N={n}]: {names}; "
+          f"device total {dev_us:.2f} us (profiler windows taken "
+          f"{attempts}); host time of execute_batch alone, median of 50: "
+          f"{host_us:.1f} us", flush=True)
+    check(len(kernels) == 1 and kernels[0][2] == 1
+          and "switch_walk_smem_kernel" in kernels[0][1] and d2h == 0,
+          f"walk (c): an auto dispatch at N={n} ran {names or 'nothing'}")
+
+    from repro_torch.core.packets import result_plane, scan_flags
+    from repro_torch.kernels.switch_engine import switch_engine as kw
+    base, idx = result_plane(pkts)
+    meta = dict(scan_flags(pkts), res_base=base, gather_idx=idx)
+    t = lambda a: torch.tensor(a, dtype=torch.int32, device="cuda")
+    op, st, rg, v = (t(pkts[f]) for f in ("op", "stage", "reg", "operand"))
+    ix = t(idx)
+    res, cm = torch.empty_like(op), torch.empty_like(ix)
+    ok = torch.empty(op.shape, dtype=torch.bool, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    split = {
+        "execute_batch, no metadata": host_us,
+        "execute_batch": _host_us(
+            lambda: eng.execute_batch(pkts, meta, mode="auto")),
+        "execute_batch, pallas": _host_us(
+            lambda: eng.execute_batch(pkts, meta, mode="pallas")),
+        "launcher": _host_us(lambda: kw.switch_walk_gather_call(
+            "affine", eng.registers, op, st, rg, v, ix)),
+        "bare C call": _host_us(lambda: kw._SMEM(
+            kw.MODES.index("affine"), eng.registers.data_ptr(), S, R, K,
+            op.data_ptr(), st.data_ptr(), rg.data_ptr(), v.data_ptr(), n,
+            res.data_ptr(), ok.data_ptr(), ix.data_ptr(), cm.data_ptr(),
+            ix.numel(), stream)),
+    }
+    print(f"walk (c) host time of one auto dispatch at N={n}, us, median of "
+          f"50 on an idle card: " + "; ".join(f"{k} {u:.1f}"
+                                             for k, u in split.items()),
+          flush=True)
+    return dict(device_us=kernels[0][0], host_us=split)
+
+
+def _staged_group(rng, cfg, n_rows):
+    """Safe-ADDP packets (the declustered layout's shape): each row's K
+    instructions on K distinct ascending stages, 40% ADDP forwarding an
+    earlier instruction's result, the rest {READ, WRITE, ADD}."""
+    from repro_torch.core.packets import empty_packets
+    p = empty_packets(n_rows, cfg)
+    for b in range(n_rows):
+        p["stage"][b] = np.sort(rng.choice(S, K, replace=False))
+        addp = (rng.random(K) < 0.4) & (np.arange(K) > 0)
+        p["op"][b] = np.where(addp, 5, rng.integers(1, 4, K))
+        p["operand"][b] = np.where(addp, rng.integers(0, np.maximum(
+            np.arange(K), 1)), rng.integers(-50, 50, K))
+        p["reg"][b] = rng.integers(0, 64, K)
+    return p
+
+
+def walk_clusters(tk, smi):
+    """(d) switch_mode="auto" at full width against CPU port clusters:
+    YCSB-A 8 x 256 (affine groups, then crash recovery), sharded n = 2
+    (serial cross-shard minis) beside n = 1, a safe-ADDP staged stream at
+    B = 256, and the TPC-C brown-out with its N = 32,768 WRITE reload on
+    the large route.  Returns launches by path and the times."""
+    from repro_torch.core.engine import SwitchEngine
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import SwitchConfig, scan_flags
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import tpcc, ycsb
+
+    out = {}
+    cfg, hi, txns, _ = _ycsb_setup()
+    gpu, cpu = (Cluster(8, cfg, hi, switch_mode="auto", device=d)
+                for d in ("cuda", "cpu"))
+    for c in (gpu, cpu):
+        c.snapshot_offload()
+    _reset(tk)
+    times, out_gpu = [], []
+    for b in range(8):
+        batch = copy.deepcopy(txns[b * B:(b + 1) * B])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_gpu += gpu.run_batch(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ycsb_l = _nonzero(_counts(tk))
+    out_cpu = []
+    for b in range(8):
+        out_cpu += cpu.run_batch(copy.deepcopy(txns[b * B:(b + 1) * B]))
+    check(out_gpu == out_cpu, "walk (d) ycsb: results differ from the CPU "
+          "port")
+    _same_clusters(gpu, cpu, "walk (d) ycsb")
+    check(set(ycsb_l) == {"switch_walk_smem.affine"}
+          and ycsb_l["switch_walk_smem.affine"] == gpu.switch.dispatch_count,
+          f"walk (d) ycsb: {ycsb_l} for {gpu.switch.dispatch_count} "
+          "dispatches")
+    before = gpu.switch.read_all()
+    _reset(tk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    known, unknown = gpu.crash_switch_and_recover()
+    t_rec = time.perf_counter() - t0
+    rec_l = _nonzero(_counts(tk))
+    check(np.array_equal(before, gpu.switch.read_all()),
+          "walk (d) ycsb: registers after recovery differ")
+    out["ycsb"] = dict(launches=ycsb_l, run_batch_s=sum(times),
+                       median_ms=statistics.median(times) * 1e3,
+                       replay_sends=known + unknown, replay_s=t_rec,
+                       replay_launches=rec_l)
+    print(f"walk (d) ycsb [{smi}]: 8 x {B} YCSB-A txns in auto mode equal "
+          f"to the CPU port (results, registers, GIDs, stats, WAL heads) in "
+          f"{sum(times):.4f} s, median run_batch "
+          f"{statistics.median(times) * 1e3:.3f} ms, launches {ycsb_l}; "
+          f"recovery replayed {known}+{unknown} sends in {t_rec:.4f} s "
+          f"({t_rec / max(known + unknown, 1) * 1e3:.4f} ms a send), "
+          f"launches {rec_l}", flush=True)
+
+    # sharded: n = 1 and n = 2 on the card, n = 2 on the CPU port
+    p = ycsb.YCSBParams(variant="A")
+    sample = ycsb.generate(np.random.default_rng(SEED), 4000, p)
+    txs = ycsb.generate(np.random.default_rng(SEED + 3), 2 * B, p)
+    worlds = {}
+    for n_sw, d in ((1, "cuda"), (2, "cuda"), (2, "cpu")):
+        cfg_n = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K,
+                             n_switches=n_sw)
+        hi_n = build_hot_index(ycsb.traces(sample), top_k=400, switch=cfg_n)
+        c = Cluster(8, cfg_n, hi_n, switch_mode="auto", device=d)
+        c.snapshot_offload()
+        _reset(tk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = []
+        for b in range(2):
+            res += c.run_batch(copy.deepcopy(txs[b * B:(b + 1) * B]))
+        torch.cuda.synchronize()
+        worlds[(n_sw, d)] = (c, res, time.perf_counter() - t0,
+                             _nonzero(_counts(tk)))
+    (c1, r1, t1, l1), (c2, r2, t2, l2), (cc, rc, _, _) = worlds.values()
+    check(r1 == r2 == rc, "walk (d) sharded: results differ")
+    _same_clusters(c2, cc, "walk (d) sharded n=2")
+    check(c1.switch.next_gid == c2.switch.next_gid,
+          "walk (d) sharded: GIDs differ from n=1")
+    stream = lambda c: [[(e.kind, e.tid) for e in n.wal] for n in c.nodes]
+    check(stream(c1) == stream(c2), "walk (d) sharded: WAL streams differ")
+    check(l2.get("switch_walk_smem.serial", 0) > 0
+          and not any(k.startswith("switch_txn") for k in l2),
+          f"walk (d) sharded: no serial cross-shard mini on the walk: {l2}")
+    out["sharded"] = dict(n1_s=t1, n2_s=t2, n1_launches=l1, n2_launches=l2)
+    print(f"walk (d) sharded [{smi}]: 2 x {B} YCSB-A txns in auto mode, "
+          f"n_switches=2 equal to n=1 and to the CPU port (results, GIDs, "
+          f"registers, WAL); run_batch total n=1 {t1:.4f} s, n=2 {t2:.4f} "
+          f"s; launches n=1 {l1}, n=2 {l2}", flush=True)
+
+    # a safe-ADDP stream at B = 256: auto runs it on the staged walk
+    engines = [SwitchEngine(cfg, device=d) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(SEED + 23)
+    _reset(tk)
+    for _ in range(3):
+        pk = _staged_group(rng, cfg, B)
+        flags = scan_flags(pk)
+        check(flags["has_addp"] and not flags["addp_unsafe"],
+              "walk (d) staged: the stream is not safe-ADDP")
+        outs = [e.execute_batch(pk, mode="auto") for e in engines]
+        check(outs[0].mode == "staged", f"walk (d): auto ran {outs[0].mode}")
+        check(np.array_equal(outs[0].results_np(), outs[1].results_np())
+              and np.array_equal(outs[0].ok_np(), outs[1].ok_np())
+              and np.array_equal(outs[0].gids, outs[1].gids),
+              "walk (d) staged: results differ from the CPU port")
+    staged_l = _nonzero(_counts(tk))
+    check(np.array_equal(engines[0].read_all(), engines[1].read_all()),
+          "walk (d) staged: registers differ from the CPU port")
+    check(staged_l == {"switch_walk_smem.staged": 3},
+          f"walk (d) staged: {staged_l}")
+    out["staged"] = dict(launches=staged_l)
+    print(f"walk (d) staged: 3 safe-ADDP groups of {B} x {K} in auto mode "
+          f"equal to the CPU port (results, ok, GIDs, registers); launches "
+          f"{staged_l}", flush=True)
+
+    # TPC-C brown-out in auto mode: the reload is a WRITE-only N = 32,768
+    tp = tpcc.TPCCParams(n_nodes=8, n_warehouses=32, dist_frac=0.2)
+    top_k = tp.n_warehouses * (1 + 2 * tpcc.N_DISTRICTS + tpcc.HOT_ITEMS)
+    thi = build_hot_index(tpcc.traces(tpcc.generate(
+        np.random.default_rng(SEED), 5000, tp)), top_k=top_k, switch=cfg)
+
+    def tpcc_auto(dev):
+        c = Cluster(8, cfg, thi, switch_mode="auto", device=dev)
+        c.snapshot_offload()
+        return c
+
+    tt = tpcc.generate(np.random.default_rng(SEED + 1), 3 * B, tp)
+    _, _, tb = brownout_case(tk, "walk (d) tpcc auto", tpcc_auto, tt)
+    reload = _nonzero(tb["reload"])
+    check(reload.get("switch_walk.affine") == 1
+          and reload.get("result_gather", 0) >= 1
+          and not any(k.startswith("switch_txn") for k in reload),
+          f"walk (d) tpcc: the reload (N = {tb['n']}) did not take the "
+          f"large route: {reload}")
+    out["tpcc_brownout"] = dict(reload=reload, n=tb["n"],
+                                exit_s=tb["exit_s"])
+    return out
+
+
+def walk_path(tk, kw, smi, prof):
+    """Phase 21: the reference's compiled switch engines as the walk
+    kernel: (a) against its plain version, (b) timed, (d) auto-mode
+    clusters against the CPU port; ``prof`` is (c), one auto dispatch
+    profiled (``walk_profile``, run earlier).  Returns the kernels line's
+    two entries."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    err, smem_bytes = walk_kernel_checks(kw, tk, dev)
+    rows = walk_timing(kw, tk, dev)
+    paths = walk_clusters(tk, smi)
+    launches = {}
+    for part in ("ycsb", "sharded", "staged", "tpcc_brownout"):
+        got = paths[part]
+        for key in ("launches", "n2_launches", "reload"):
+            for k, v in got.get(key, {}).items():
+                launches[k] = launches.get(k, 0) + v
+    routes = _by_route(launches)
+    check(routes.get("switch_walk_smem", 0) > 0
+          and routes.get("switch_walk", 0) > 0,
+          f"walk: a route was not launched on the auto paths: {launches}")
+    took = time.perf_counter() - t_phase
+    print(f"walk [{smi}]: phase 21 took {took:.1f} s; launches on the auto "
+          f"paths {launches}", flush=True)
+    src = "src/repro_torch/kernels/switch_engine/csrc/switch_engine.cu"
+    replaces = ["src/repro/core/engine.py:98 (_serial_engine_impl)",
+                "src/repro/core/engine.py:132 (_staged_engine_impl)",
+                "src/repro/core/engine.py:170 (_affine_engine_impl)"]
+    main_row, large_row = rows[f"affine@{B * K}"], rows["affine@32768"]
+    return [
+        dict(name="switch_walk_smem", route="cuda", source=src,
+             replaces="src/repro/core/engine.py:170",
+             replaces_all=replaces, launches=routes["switch_walk_smem"],
+             max_abs_err=err, ms=main_row["ms"],
+             plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
+             bound_by=main_row["bound_by"], library_ms=None,
+             kernel_ms=main_row["kernel_ms"], shape=[S * R, B * K],
+             smem_bytes=smem_bytes, by_mode=rows, profile=prof,
+             paths=paths),
+        dict(name="switch_walk", route="cuda", source=src,
+             replaces="src/repro/core/engine.py:170",
+             replaces_all=replaces, launches=routes["switch_walk"],
+             max_abs_err=err, ms=large_row["ms"],
+             plain_ms=large_row["plain_ms"], bound_ms=large_row["bound_ms"],
+             bound_by=large_row["bound_by"], library_ms=None,
+             shape=[S * R, 32768]),
+    ]
 
 
 def main():
@@ -4269,6 +4829,7 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.moe_route import moe_route as mr
+    from repro_torch.kernels.switch_engine import switch_engine as kw
     from repro_torch.kernels.switch_txn import switch_txn as tk
 
     t_start = time.perf_counter()
@@ -4302,9 +4863,10 @@ def main():
     launches["scan_prune"] = scan_launches["scan_prune"]
     sharded_path(tk, scan_gpu, p)
     async_read_path(tk, hi, p)
-    cadd_path(tk)
+    smallbank = cadd_path(tk)
     kernels[0]["dispatch_device_us"], kernels[0]["dispatch_host_us"] = \
         profile_batch(tk, gpu, hi, p)
+    walk_prof = walk_profile(tk, gpu.switch_cfg)        # phase 21 (c)
     kernels[2]["scan_device_us"], kernels[2]["scan_host_us"] = \
         profile_scan(tk, gpu, hi)
     launches["moe_route"] = serve_path(mr)
@@ -4338,6 +4900,12 @@ def main():
         brownout_enter={w: dur[f"{w}_brownout"]["enter"]["result_gather"]
                         for w in ("ycsb", "tpcc")},
         tpcc_reload=dur["tpcc_brownout"]["reload"]["result_gather"])
+    walk = walk_path(tk, kw, smi, walk_prof)
+    walk[0]["smallbank_auto"] = smallbank
+    walk[0]["replays"] = dict(durability=dur["replay_launches"],
+                              bounded=[_by_route(r["recover_launches"])
+                                       for r in dur["bounded"]])
+    kernels += walk
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,15 +6,18 @@ serial-equivalent admission order, every executed transaction gets a GID,
 and the register file stays resident on the engine's device between
 calls.  Execution paths, with the reference's mode names:
 
-  serial  — a Python loop over the flat instruction stream; the oracle,
-            every opcode including CADD and ADDP.
+  serial  — the flat instruction stream in order; the oracle, every
+            opcode including CADD and ADDP.
   affine  — {NOP, READ, WRITE, ADD} as affine maps v' = a*v + c with a in
-            {0, 1}: the reference's segmented associative scan becomes a
-            segmented cumsum that restarts at each slot and at each WRITE.
+            {0, 1}: one chain per slot, in admission order.
   staged  — stage by stage affine passes, forwarding ADDP operands from
             earlier stages' results.
   pallas  — the hand-written CUDA kernels of ``kernels/switch_txn`` (the
             name is kept so every caller validates exactly as before).
+
+On the card the first three are the walk kernel of
+``kernels/switch_engine`` (one launch a dispatch, like the reference's one
+compiled program); on the CPU they are its plain versions.
 
 The read tier (``execute_reads``, ``execute_scan``) answers from the same
 resident registers through the gather and scan-prune kernels, and
@@ -38,14 +41,16 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.packets import (ADD, ADDP, CADD, NOP, READ, WRITE,
-                                      PacketStager, ReadPacket,
-                                      SwitchConfig, result_plane,
-                                      scan_flags, shard_rows)
+from repro_torch.core.packets import (ADD, ADDP, NOP, PacketStager,
+                                      ReadPacket, SwitchConfig,
+                                      result_plane, scan_flags, shard_rows)
+from repro_torch.kernels.switch_engine import ops as kwk
+from repro_torch.kernels.switch_engine.switch_engine import (
+    affine_plain as _affine_engine_impl, serial_plain as _serial_engine_impl,
+    staged_plain as _staged_engine_impl)
 from repro_torch.kernels.switch_txn import ops as ktx
 from repro_torch.kernels.switch_txn.switch_txn import (AGG_MAX_EMPTY,
-                                                       AGG_MIN_EMPTY,
-                                                       _wrap32)
+                                                       AGG_MIN_EMPTY)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -78,137 +83,8 @@ def _sync(device: torch.device):
         torch.cuda.current_stream(device).synchronize()
 
 
-# ------------------------------------------------------------- serial ----
-
-def _serial_engine_impl(registers, op, stage, reg, val):
-    """Oracle: sequential execution of the [B, K] instruction stream in
-    (txn, instr) order.  Handles every opcode; ADDP adds the result of an
-    earlier instruction of the same txn.  Updates ``registers`` in place.
-
-    Values never leave the registers' device, and only the slots the
-    stream names are read and written: the loop follows a host copy of
-    the (small) instruction stream, and each instruction is a few scalar
-    tensor ops on a gathered copy of the touched slots, scattered back at
-    the end."""
-    S, R = registers.shape
-    B, K = op.shape
-    n_slots = S * R
-    dev = registers.device
-    ops_, stage_, reg_, vals = (
-        torch.stack((op, stage, reg, val)).cpu().numpy().reshape(4, -1))
-    g = stage_.astype(np.int64) * R + reg_
-    live = np.flatnonzero(ops_ != NOP)
-    slots, loc = np.unique(np.clip(g[live], 0, n_slots - 1),
-                           return_inverse=True)
-    slots_t = torch.from_numpy(slots).to(dev)
-    flat = registers.view(-1)
-    cur = flat[slots_t]                     # [U] the touched slots
-    results = torch.zeros(B * K, dtype=torch.int32, device=dev)
-    ok = torch.ones(B * K, dtype=torch.bool, device=dev)
-    for i, j in zip(live.tolist(), loc.reshape(-1).tolist()):
-        o, v, gi = int(ops_[i]), int(vals[i]), int(g[i])
-        c = cur[j]                          # 0-d view of the slot's value
-        keep = 0 <= gi < n_slots            # out-of-range writes drop
-        if o == READ:
-            results[i] = c
-            continue
-        if o == WRITE:
-            results[i] = v
-            if keep:
-                c.fill_(v)
-            continue
-        addend = results[i - i % K + min(max(v, 0), K - 1)] \
-            if o == ADDP else v
-        post = _wrap32(c.to(torch.int64) + addend)
-        if o == CADD:
-            ok[i] = post >= 0
-            post = torch.where(ok[i], post, c)
-        results[i] = post
-        if keep:
-            c.copy_(post)
-    flat[slots_t] = cur
-    return registers, results.view(B, K), ok.view(B, K)
-
-
-# ------------------------------------------------------------- affine ----
-
-def _affine_engine_impl(registers, op, stage, reg, val):
-    """Vectorized serial-equivalent execution for {NOP, READ, WRITE, ADD}.
-
-    Every op is v' = a*v + c with a = 0 for WRITE and 1 otherwise, so the
-    value after op i is the value at the last reset — the segment start
-    (the register's old value) or the latest WRITE (0) — plus the sum of
-    c since that reset: a segmented cumsum.  Sums run in int64 and wrap to
-    int32, which equals the reference's int32 scan modulo 2^32.  Updates
-    ``registers`` in place."""
-    S, R = registers.shape
-    B, K = op.shape
-    N = B * K
-    dev = registers.device
-    flat = registers.view(-1)
-    opf = op.reshape(-1)
-    g = (stage * R + reg).reshape(-1).to(torch.int64)
-    g = torch.where(opf == NOP, S * R, g)             # sort NOPs to the end
-    v = val.reshape(-1)
-
-    gs, order = torch.sort(g, stable=True)           # admission order/slot
-    os_ = opf[order]
-    vs = v[order].to(torch.int64)
-    is_write = os_ == WRITE
-    c = torch.where(is_write | (os_ == ADD), vs, torch.zeros_like(vs))
-    seg_start = torch.ones(N, dtype=torch.bool, device=dev)
-    seg_start[1:] = gs[1:] != gs[:-1]
-    v0 = flat[gs.clamp(max=S * R - 1)].to(torch.int64)
-
-    reset = seg_start | is_write                      # a cumsum restarts
-    csum = torch.cumsum(c, 0)
-    first = torch.nonzero(reset).squeeze(1)
-    blk_first = first[torch.cumsum(reset.to(torch.int64), 0) - 1]
-    base = torch.where(is_write[blk_first], torch.zeros_like(v0), v0)
-    post64 = base + csum - csum[blk_first] + c[blk_first]
-    post = _wrap32(post64)
-    prev_post = torch.cat([post[:1] * 0, post[:-1]])
-    pre = torch.where(seg_start, v0.to(torch.int32), prev_post)
-    res_sorted = torch.where(os_ == READ, pre,
-                 torch.where(os_ == NOP, torch.zeros_like(post), post))
-
-    # final register value = post at each segment's last element; the NOP
-    # segment (slot S*R) is dropped
-    seg_end = torch.ones(N, dtype=torch.bool, device=dev)
-    seg_end[:-1] = gs[1:] != gs[:-1]
-    upd = seg_end & (gs < S * R)
-    flat[gs[upd]] = post[upd]
-
-    res = torch.empty(N, dtype=torch.int32, device=dev)
-    res[order] = res_sorted                           # unsort
-    ok = torch.ones((B, K), dtype=torch.bool, device=dev)
-    return registers, res.reshape(B, K), ok
-
-
-def _staged_engine_impl(registers, op, stage, reg, val):
-    """Pipeline-structured vectorized engine: stages execute in order; in
-    each stage an affine pass gives the serial-equivalent values, with ADDP
-    operands resolved from earlier stages' results (legal because the
-    declustered layout puts dependency sources in earlier stages).
-    Opcodes: NOP/READ/WRITE/ADD/ADDP.  Updates ``registers`` in place."""
-    S, R = registers.shape
-    B, K = op.shape
-    results = torch.zeros((B, K), dtype=torch.int32, device=registers.device)
-    src = val.clamp(0, K - 1).to(torch.int64)
-    zero_stage = torch.zeros_like(stage)
-    for s in range(S):                       # the pipeline: stage by stage
-        active = torch.where(stage == s, op, torch.zeros_like(op))
-        prev = torch.gather(results, 1, src)
-        v_eff = torch.where(active == ADDP, prev, val)
-        o_eff = torch.where(active == ADDP, torch.full_like(active, ADD),
-                            active)
-        _, res_s, _ = _affine_engine_impl(registers[s:s + 1], o_eff,
-                                          zero_stage, reg, v_eff)
-        results = torch.where(active != NOP, res_s, results)
-    return registers, results, torch.ones((B, K), dtype=torch.bool,
-                                          device=registers.device)
-
-
+# the engines of the explicit modes and of ``auto``: the plain versions
+# (CPU tensors) and their kernels live in kernels/switch_engine
 _ENGINE_IMPLS = {"serial": _serial_engine_impl,
                  "staged": _staged_engine_impl,
                  "affine": _affine_engine_impl}
@@ -216,17 +92,19 @@ _ENGINE_IMPLS = {"serial": _serial_engine_impl,
 
 def _run_fused(mode: str, registers, fused, Mp: int):
     """One dispatch: run the engine on the fused [N_PLANES, Bp, K] staging
-    tensor and gather the compacted device-only result rows.  In
-    ``pallas`` mode the engine and the gather are one kernel launch on the
-    card (``ops.switch_exec_gather``)."""
+    tensor and gather the compacted device-only result rows.  On the
+    card every mode is one kernel launch, engine and gather together, for
+    a group of up to 8,192 instructions: ``pallas`` the switch_txn kernel
+    (``kernels/switch_txn/ops.switch_exec_gather``), ``serial`` /
+    ``staged`` / ``affine`` the walk kernel
+    (``kernels/switch_engine/ops.engine_exec_gather``); nothing waits for
+    the device or copies to the host.  CPU tensors run the plain
+    versions."""
     op, stage, reg, val = fused[0], fused[1], fused[2], fused[3]
     idx = fused[4].reshape(-1)[:Mp]
     if mode == "pallas":
         return ktx.switch_exec_gather(registers, op, stage, reg, val, idx)
-    regs, res, ok = _ENGINE_IMPLS[mode](registers, op, stage, reg, val)
-    flat = res.reshape(-1)
-    compact = flat[idx.clamp(0, flat.shape[0] - 1).to(torch.int64)]
-    return regs, res, ok, compact
+    return kwk.engine_exec_gather(mode, registers, op, stage, reg, val, idx)
 
 
 def _bucket(b: int) -> int:
@@ -509,14 +387,8 @@ class SwitchEngine:
         Mp = _bucket(M)
         idx = np.zeros(Mp, np.int32)
         idx[:M] = rp.flat_idx(self.cfg)
-        if mode == "pallas":
-            def job():
-                return ktx.gather_results(self.registers, self._put(idx))
-        else:
-            def job():
-                flat = self.registers.view(-1)
-                i = self._put(idx).clamp(0, flat.shape[0] - 1)
-                return flat[i.to(torch.int64)]
+        def job():          # every mode: one result_gather on the card
+            return ktx.gather_results(self.registers, self._put(idx))
 
         self.read_dispatch_count += 1
         out, fut = self._submit(job, defer)

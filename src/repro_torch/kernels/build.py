@@ -44,6 +44,16 @@ LIBRARIES = {
         "scan_prune_large_launch": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp,
                                     _vp, _ci, _vp],
     }),
+    "switch_engine": (KERNELS / "switch_engine" / "csrc" /
+                      "switch_engine.cu", {
+        "switch_walk_smem_bytes": [_ci],
+        "switch_walk_smem_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
+                                    _vp, _ci, _vp, _vp, _vp, _vp, _ci, _vp],
+        "switch_walk_prep_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
+                                    _vp, _ci, _vp, _vp, _vp, _vp, _vp, _vp],
+        "switch_walk_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
+                               _vp, _vp, _vp, _vp, _vp],
+    }),
     "moe_route": (KERNELS / "moe_route" / "csrc" / "moe_route.cu", {
         "moe_route_launch": [_vp, _ci, _vp, _vp],
         "moe_plan_launch": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,

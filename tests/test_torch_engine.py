@@ -35,6 +35,15 @@ def _run_both(je, te, p, mode):
     assert je.dispatch_count == te.dispatch_count
 
 
+def _stray(p, rng, stage=None, reg=None):
+    """``p`` with 30% of its instructions moved to ``stage`` and (another
+    30%) to ``reg``: slots past the file, or negative ones."""
+    for field, to in (("stage", stage), ("reg", reg)):
+        if to is not None:
+            p[field][rng.random(p["op"].shape) < 0.3] = to
+    return p
+
+
 _BATCHES = {
     "affine": lambda rng, B: random_batch(rng, B, 5),
     "serial": lambda rng, B: random_batch(rng, B, 5, ops=(0, 1, 2, 3, 4, 5)),
@@ -43,19 +52,35 @@ _BATCHES = {
     "auto": lambda rng, B: (random_batch(rng, B, 5) if B % 3 == 0 else
                             staged_addp_batch(rng, B) if B % 3 == 1 else
                             random_batch(rng, B, 5, ops=(0, 1, 2, 3, 4))),
+    # stray slots: past the file (stage or reg) and negative, mode by mode
+    "affine_far": lambda rng, B: _stray(random_batch(rng, B, 5), rng,
+                                        CFG.n_stages + 2,
+                                        CFG.regs_per_stage + 3),
+    "staged_far": lambda rng, B: _stray(staged_addp_batch(rng, B), rng,
+                                        reg=CFG.regs_per_stage + 3),
+    "affine_negative": lambda rng, B: _stray(random_batch(rng, B, 5), rng,
+                                             reg=-2),
+    "staged_negative": lambda rng, B: _stray(staged_addp_batch(rng, B), rng,
+                                             reg=-2),
+    "auto_negative": lambda rng, B: _stray(_BATCHES["auto"](rng, B), rng,
+                                           reg=-2),
 }
 
 
 @pytest.mark.parametrize("mode", ["serial", "affine", "staged", "pallas",
-                                  "auto"])
+                                  "auto", "affine_far", "staged_far",
+                                  "affine_negative", "staged_negative",
+                                  "auto_negative"])
 def test_engine_modes_match_jax(mode):
     """Several batches per engine pair (power-of-two buckets, chained
-    register state), every mode, against the JAX engine."""
+    register state), every mode, against the JAX engine; the ``_far`` and
+    ``_negative`` cases put slots past the file or below 0, where the
+    port follows JAX's rule for each engine."""
     rng = np.random.default_rng(sum(map(ord, mode)))
     je, te = _pair(rng.integers(-50, 100, (CFG.n_stages,
                                            CFG.regs_per_stage)))
     for B in (1, 3, 17, 33, 64):
-        _run_both(je, te, _BATCHES[mode](rng, B), mode)
+        _run_both(je, te, _BATCHES[mode](rng, B), mode.split("_")[0])
 
 
 def test_engine_int32_wraparound_matches_jax():
@@ -74,16 +99,23 @@ def test_engine_int32_wraparound_matches_jax():
 def test_serial_out_of_range_slots_match_jax():
     """The serial engine reads a slot past the file clamped into it and
     drops its write, chained through ADDP and CADD, like the JAX serial
-    engine (negative slots are a deliberate difference: the port clamps
-    them to 0); slots the stream never names keep their values."""
+    engine; a negative slot wraps once by the file's length, as JAX's
+    index does (within one length it is a live slot, beyond it reads slot
+    0 and drops its write); slots the stream never names keep their
+    values."""
     rng = np.random.default_rng(6)
     regs0 = rng.integers(-50, 100, (CFG.n_stages, CFG.regs_per_stage))
     je, te = _pair(regs0)
-    for B in (4, 9):
+    n_slots = CFG.n_stages * CFG.regs_per_stage
+    for B in (4, 9, 17):
         p = random_batch(rng, B, 5, ops=(0, 1, 2, 3, 4, 5))
         far = rng.random((B, 5)) < 0.3
         p["stage"][far] = CFG.n_stages + 2
         p["reg"][far[::-1]] = CFG.regs_per_stage + 3
+        neg = rng.random((B, 5)) < 0.3
+        p["stage"][neg] = 0
+        p["reg"][neg] = rng.choice([-2, -1, -n_slots, -n_slots - 4],
+                                   int(neg.sum()))
         _run_both(je, te, p, "serial")
     te2 = teng.SwitchEngine(TCFG, regs0, device="cpu")
     p = empty_packets(1, CFG)
@@ -137,6 +169,13 @@ def test_execute_reads_pallas_matches_jax():
             v1 = je.execute_reads(JReadPacket(sw, st, rg), mode=mode)
             v2 = te.execute_reads(ReadPacket(sw, st, rg), mode=mode)
             np.testing.assert_array_equal(v1.values_np(), v2.values_np())
+        # auto reads clamp a slot past the file or below 0 from both
+        # sides, as the reference's clip-mode gather does
+        rg[::2] = rng.choice([-3, CFG.regs_per_stage + 2, 10 ** 6],
+                             len(rg[::2]))
+        v1 = je.execute_reads(JReadPacket(sw, st * 0, rg), mode="auto")
+        v2 = te.execute_reads(ReadPacket(sw, st * 0, rg), mode="auto")
+        np.testing.assert_array_equal(v1.values_np(), v2.values_np())
     assert je.read_dispatch_count == te.read_dispatch_count
 
 

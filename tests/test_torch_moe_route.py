@@ -134,7 +134,8 @@ def test_kernel_build_binds_every_export():
     routing plan's ``moe_plan_launch`` among them), and each bound
     function has as many ctypes argtypes as its C definition has
     parameters (a miscount would only show on the card)."""
-    assert set(build.LIBRARIES) == {"switch_txn", "moe_route"}
+    assert set(build.LIBRARIES) == {"switch_txn", "switch_engine",
+                                    "moe_route"}
     bound = set()
     for name, (source, exports) in build.LIBRARIES.items():
         text = source.read_text()
@@ -147,4 +148,5 @@ def test_kernel_build_binds_every_export():
             assert m, f"{fn} is not defined in {source.name}"
             assert len(m.group(1).split(",")) == len(argtypes), fn
     assert {"scan_prune_launch", "scan_prune_large_launch",
-            "scan_prune_scratch_len", "moe_plan_launch"} <= bound
+            "scan_prune_scratch_len", "moe_plan_launch",
+            "switch_walk_smem_launch", "switch_walk_launch"} <= bound
