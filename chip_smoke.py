@@ -196,7 +196,13 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# torch.profiler on the H100 loses device events more and more as the
+# process ages (see _window) unless CUPTI is torn down after each window
+# and set up afresh; set before torch loads.
+os.environ["TEARDOWN_CUPTI"] = "1"
+
+import torch  # noqa: E402
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
@@ -212,7 +218,15 @@ def fail(msg: str):
     for p in CHILDREN:
         if p.poll() is None:
             p.kill()
-    sys.exit(1)
+    _exit(1)
+
+
+def _exit(code: int):
+    """Leave without the interpreter's exit: after a profiled window,
+    CUPTI's teardown at exit can hang the process."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
 
 
 def check(cond, msg: str):
@@ -316,6 +330,12 @@ def _ptxas_lines(log: str):
                         "moe_route_kernel", "moe_plan_kernel",
                         "switch_walk_smem_kernel", "switch_walk_prep_kernel",
                         "switch_walk_link_kernel",
+                        "switch_walk_gather_kernel",
+                        "switch_walk_chains_kernel",
+                        "switch_walk_tile_reduce_kernel",
+                        "switch_walk_tile_prefix_kernel",
+                        "switch_walk_tile_apply_kernel",
+                        "switch_walk_fallback_prep_kernel",
                         "switch_walk_writeback_kernel", "switch_walk_kernel"):
                 if tag in name:
                     tail = name.split(tag)[1]
@@ -1321,61 +1341,71 @@ def cadd_path(tk):
 # --------------------------------------------------------------- phase 10 --
 
 def _device_by_name(prof):
-    """(device us, [(us, name, count)] by kernel name) of a profile."""
-    total, rows = 0.0, []
+    """[(device us, name, count)] by kernel name of a profile."""
+    rows = []
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")) != "DeviceType.CUDA":
             continue                 # host ops repeat their kernels' time
         t = getattr(e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0))
         if t > 0:
-            total += t
             rows.append((t, e.key, e.count))
-    return total, sorted(rows, reverse=True)
+    return sorted(rows, reverse=True)
 
 
-def _profile_steps(fn, tries=3):
-    """(device us, rows by name, attempts) of ``fn``'s second call under
-    the profiler, without the profiler's own step rows.  The first call
-    runs while the profiler warms up (``torch.profiler.schedule``'s
-    warmup step): profiled cold, a window lost its first device event in
-    PR 15's first chip run (a pruned scan's copy was seen, its kernel not).
-    A window in which the profiler saw no device activity at all (which a
-    call that runs a kernel or a copy cannot cause) is taken again, up to
-    ``tries`` times."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+def _window(fn):
+    """(rows by name, wall s of ``fn``) of one profiler window around
+    ``fn()``, opened and closed by a spin kernel whose rows are dropped;
+    rows are None when the profiler did not see both spins.  On the H100
+    it drops whole windows (with CUPTI torn down after each window, every
+    other one) and at times a window's first events
+    (``tools/profiler_windows.py`` counts each kind)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    rows = _device_by_name(prof)
+    spins = sum(c for _, k, c in rows if "spin_kernel" in k)
+    return ([r for r in rows if "spin_kernel" not in r[1]]
+            if spins == 2 else None), wall
+
+
+def _profile_steps(fn, tries=12):
+    """(device us, rows by name, windows taken) of one warm call of
+    ``fn`` under the profiler: ``fn`` runs once before, then in windows
+    until one is kept, up to ``tries``; rows are empty when none was."""
+    fn()
+    torch.cuda.synchronize()
     for attempt in range(1, tries + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        _, rows = _device_by_name(prof)
-        rows = [r for r in rows if not r[1].startswith("ProfilerStep")]
-        if rows:
+        rows, _ = _window(fn)
+        if rows is not None:
             break
+        time.sleep(0.1)
+    rows = rows or []
     return sum(t for t, _, _ in rows), rows, attempt
 
 
 def _profile(label, fn, top=None):
     """Wall time and device busy time of ``fn()`` under torch.profiler,
     with the ``top`` kernels by device time (all when None); returns the
-    busy share (None where the profiler saw no device activity)."""
-    from torch.profiler import ProfilerActivity, profile
+    busy share (None where the window was lost).  ``fn`` runs once: empty
+    windows first, until the profiler loses one, since the window after
+    a lost one is kept."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev_us, rows = _device_by_name(prof)
-    if dev_us == 0:
-        print(f"profile [{label}]: device time not measured (profiler saw "
-              "no device activity)", flush=True)
+    for _ in range(3):
+        if _window(lambda: None)[0] is None:
+            break
+    rows, wall = _window(fn)
+    dev_us = sum(t for t, _, _ in rows or [])
+    if not dev_us:
+        print(f"profile [{label}]: device time not measured (the profiler "
+              "lost the window)", flush=True)
         return None
     short = lambda k: k.replace("(anonymous namespace)::", "").split(
         "(")[0].split("<")[0].split("::")[-1][:48]
@@ -4411,11 +4441,117 @@ def _walk_rng(mode, n):
                                                       "affine").index(mode))
 
 
+def _ladder_stream(rng, mode, B_, K_, depth=K - 1):
+    """Rows that each climb an ADDP ladder: instruction k <= depth adds
+    instruction k - 1's result on a slot of its own (staged: ascending
+    stages, every ADDP forwarded), the first an ADD, the rest READ / ADD;
+    ``depth`` levels past ROUND_CAP make serial rounds give up."""
+    shape = (B_, K_)
+    op = rng.choice([1, 3], shape).astype(np.int32)
+    op[:, 0] = 3
+    op[:, 1:depth + 1] = 5
+    val = rng.integers(1, 1000, shape).astype(np.int32)
+    val[:, 1:depth + 1] = np.arange(depth, dtype=np.int32)
+    if mode == "staged":
+        st = np.sort(np.argsort(rng.random((B_, S)), axis=1)[:, :K_],
+                     axis=1).astype(np.int32)
+        rg = rng.integers(0, 64, shape).astype(np.int32)
+    else:
+        flat = rng.integers(0, S * R, shape)
+        st, rg = (flat // R).astype(np.int32), (flat % R).astype(np.int32)
+    regs = rng.integers(-1000, 1000, (S, R)).astype(np.int32)
+    idx = rng.integers(0, B_ * K_, B_ * K_ // 2 + 1).astype(np.int32)
+    return regs, op, st, rg, val, idx
+
+
+def _captured_groups():
+    """Real dispatches, captured at the walk's entry from CPU port
+    clusters in auto mode (the card's equal them, phase 21 (d)): the
+    largest YCSB-A affine group, the largest serial group of SmallBank
+    with its ADDP txns (amalgamate), and a safe-ADDP staged group of B x
+    K.  Returns {name: (mode, registers before, op, stage, reg, val,
+    idx)} as numpy arrays."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core.engine import SwitchEngine
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import smallbank
+
+    seen = []
+    orig = teng.kwk.engine_exec_gather
+
+    def record(mode, registers, op, stage, reg, val, idx):
+        seen.append((mode,) + tuple(t.cpu().numpy().copy() for t in (
+            registers, op, stage, reg, val, idx)))
+        return orig(mode, registers, op, stage, reg, val, idx)
+
+    def largest(mode):
+        got = [g for g in seen if g[0] == mode]
+        check(got, f"walk (a): no {mode} group was captured")
+        return max(got, key=lambda g: g[2].size)
+
+    out = {}
+    teng.kwk.engine_exec_gather = record
+    try:
+        cfg, hi, txns, _ = _ycsb_setup()
+        c = Cluster(8, cfg, hi, switch_mode="auto", device="cpu")
+        c.snapshot_offload()
+        c.run_batch(copy.deepcopy(txns[:B]))
+        out["ycsb-A group"] = largest("affine")
+        seen.clear()
+        p = smallbank.SmallBankParams()
+        sample = smallbank.generate(np.random.default_rng(SEED), 6000, p)
+        shi = build_hot_index(smallbank.traces(sample),
+                              top_k=p.hot_per_node * p.n_nodes * 2,
+                              switch=cfg)
+        c = Cluster(8, cfg, shi, switch_mode="auto", device="cpu")
+        for k in smallbank.hot_keys(p):
+            c.load(k, 100)
+        c.snapshot_offload()
+        c.run_batch(smallbank.generate(np.random.default_rng(SEED + 1),
+                                       2 * B, p))
+        out["smallbank group"] = largest("serial")
+        seen.clear()
+        SwitchEngine(cfg, device="cpu").execute_batch(
+            _staged_group(np.random.default_rng(SEED + 23), cfg, B),
+            mode="auto")
+        out["safe-ADDP staged group"] = largest("staged")
+    finally:
+        teng.kwk.engine_exec_gather = orig
+    return out
+
+
+def _walk_once(kw, mode, arrays, dev, where):
+    """The kernel (with its rounds) and the plain version on ``where`` of
+    one stream; checks registers, res, ok and compact equal.  Returns
+    (max abs error, rounds)."""
+    t = lambda a, d=dev: torch.tensor(a, dtype=torch.int32, device=d)
+    regs, op, st, rg, val, idx = arrays
+    got = kw.switch_walk_gather_call(mode, t(regs), t(op), t(st), t(rg),
+                                     t(val), t(idx), rounds=True)
+    want = kw.switch_walk_plain(mode, *(t(a, where) for a in arrays))
+    torch.cuda.synchronize()
+    err = 0
+    for name, a, b in zip(("registers", "res", "ok", "compact"), got, want):
+        a, b = a.cpu(), b.cpu()
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"walk: {mode} {name} differ from plain at N={op.size}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err, int(got[4].item())
+
+
 def walk_kernel_checks(kw, tk, dev):
-    """(a) The walk kernel against its plain version on the card, each
-    mode at every N of WALK_SHAPES: registers, res, ok and compact equal,
-    and the route each N must take.  Returns (max abs error, shared memory
-    by tile)."""
+    """(a) The walk kernels against their plain version on the card, each
+    mode at every N of WALK_SHAPES, then real captured groups (YCSB-A
+    affine, SmallBank serial, safe-ADDP staged), the serial N = 4,096
+    stream without its ADDPs (one round), and ADDP ladders (serial past
+    ROUND_CAP, staged 15 stages deep) at N = 4,096 and 32,768:
+    registers, res, ok and compact equal, and the route each N must take.
+    Prints the rounds each stream took; serial must both converge in
+    rounds and give up to the one-thread walk somewhere.  Returns (max abs
+    error, shared memory by tile, rounds by stream, the streams (b) also
+    times)."""
     from repro_torch.kernels import build
     lib = build.library("switch_engine")
     wmax = kw.WALK_SMEM_MAX
@@ -4424,41 +4560,57 @@ def walk_kernel_checks(kw, tk, dev):
           f"WALK_SMEM_MAX={wmax} disagrees with the CUDA source")
     smem_bytes = {n: lib.switch_walk_smem_bytes(n)
                   for n in (32, 256, 1024, 4096, wmax)}
-    err, lines = 0, []
+    streams = []
     for mode in kw.MODES:
         for B_, K_ in WALK_SHAPES:
-            n = B_ * K_
-            regs, op, st, rg, val, idx = _walk_stream(_walk_rng(mode, n),
-                                                      mode, B_, K_)
-            t = lambda a, d=dev: torch.tensor(a, dtype=torch.int32, device=d)
-            _reset(tk)
-            got = kw.switch_walk_gather_call(mode, t(regs), t(op), t(st),
-                                             t(rg), t(val), t(idx))
-            launched = _nonzero(_counts(tk))
-            where = (dev if mode != "serial" or n <= WALK_SERIAL_PLAIN_ON_CARD
-                     else torch.device("cpu"))
-            want = kw.switch_walk_plain(
-                mode, *(t(a, where) for a in (regs, op, st, rg, val, idx)))
-            torch.cuda.synchronize()
-            for name, a, b in zip(("registers", "res", "ok", "compact"), got,
-                                  want):
-                a, b = a.cpu(), b.cpu()
-                check(a.dtype == b.dtype and torch.equal(a, b),
-                      f"walk: {mode} {name} differ from plain at N={n}")
-                if a.numel():
-                    err = max(err, int((a.long() - b.long()).abs().max()))
-            route = "switch_walk_smem" if n <= wmax else "switch_walk"
-            expect = {f"{route}.{mode}": 1}
-            if route == "switch_walk":
-                expect["result_gather"] = 1
-            check(launched == expect, f"walk: {mode} at N={n} launched "
-                  f"{launched}, expected {expect}")
-            lines.append(f"{mode} N={n} {route}"
-                         + (" (plain on the CPU)" if where != dev else ""))
+            streams.append((f"{mode} N={B_ * K_}", mode, _walk_stream(
+                _walk_rng(mode, B_ * K_), mode, B_, K_)))
+    extra = {}                          # timed in (b) too
+    for name, (mode, *arrays) in _captured_groups().items():
+        name = f"{name} ({mode}, N={arrays[1].size})"
+        streams.append((name, mode, arrays))
+        extra[name] = (mode, arrays)
+    arrays = _walk_stream(_walk_rng("serial", B * K), "serial", B, K)
+    arrays[1][arrays[1] == 5] = 3          # ADDP -> ADD: one round
+    streams.append((f"serial no-ADDP N={B * K}", "serial", arrays))
+    extra[streams[-1][0]] = ("serial", arrays)
+    for mode in ("serial", "staged"):
+        for B_ in (B, 2048):
+            name = f"{mode} ADDP ladder N={B_ * K}"
+            streams.append((name, mode, _ladder_stream(
+                np.random.default_rng(SEED + 31 + B_), mode, B_, K)))
+            if B_ == B:
+                extra[name] = (mode, streams[-1][2])
+    err, lines, rounds = 0, [], {}
+    for name, mode, arrays in streams:
+        n = arrays[1].size
+        where = (dev if mode != "serial" or n <= WALK_SERIAL_PLAIN_ON_CARD
+                 else torch.device("cpu"))
+        _reset(tk)
+        e, r = _walk_once(kw, mode, arrays, dev, where)
+        launched = _nonzero(_counts(tk))
+        err = max(err, e)
+        route = "switch_walk_smem" if n <= wmax else "switch_walk"
+        expect = {f"{route}.{mode}": 1}
+        if route == "switch_walk":
+            expect["result_gather"] = 1
+        check(launched == expect, f"walk: {name} launched {launched}, "
+              f"expected {expect}")
+        check(r == 1 if mode == "affine" else r != 0,
+              f"walk: {name} took {r} rounds")
+        rounds[name] = r
+        lines.append(f"{name} {route} rounds {r}"
+                     + (" (plain on the CPU)" if where != dev else ""))
+    serial = [r for (name, mode, _), r in zip(streams, rounds.values())
+              if mode == "serial"]
+    check(any(r > 0 for r in serial) and any(r < 0 for r in serial),
+          f"walk (a): serial streams did not both converge and give up "
+          f"(rounds {serial})")
     print(f"walk (a): equal to plain (registers, res, ok, compact) on "
-          f"{'; '.join(lines)}; shared memory by tile {smem_bytes} bytes",
+          f"{'; '.join(lines)}; shared memory by tile {smem_bytes} bytes "
+          f"(rounds < 0: the rounds gave up, the one-thread walk ran)",
           flush=True)
-    return err, smem_bytes
+    return err, smem_bytes, rounds, extra
 
 
 def _walk_bound(op, st, rg, n_idx):
@@ -4474,47 +4626,75 @@ def _walk_bound(op, st, rg, n_idx):
                     n)
 
 
-def walk_timing(kw, tk, dev):
+def _kernel_name(name):
+    """A profiler row's kernel name without namespaces, template arguments
+    and parameters."""
+    name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", ""))
+    return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
+
+
+def walk_timing(kw, tk, dev, extra):
     """(b) CUDA-event time of each mode per call (the launcher) and bare
     (the C call alone) at the main path's N = 4,096 and at N = 16 (a B = 1
-    group); the large route at N = 32,768; the plain version at 4,096 and
-    32,768 (serial at 4,096 only); each beside its bytes bound."""
+    group); the large route at N = 32,768; ``extra`` ({name: (mode,
+    arrays)}: the captured groups and the 4,096 ladders) per call and
+    bare; the profiler's device time of one call at 4,096 and 32,768 (the
+    large route's kernels by name; "not measured" where a window came
+    back empty); the plain version at 4,096 and 32,768 (serial at 4,096
+    only); each beside its bytes bound."""
+    streams = [(f"{mode}@{B_ * K_}", mode, _walk_stream(
+        _walk_rng(mode, B_ * K_), mode, B_, K_))
+        for mode in kw.MODES for B_, K_ in ((256, 16), (1, 16), (2048, 16))]
+    streams += [(name, mode, arrays) for name, (mode, arrays) in
+                extra.items()]
     rows = {}
-    for mode in kw.MODES:
-        for B_, K_ in ((256, 16), (1, 16), (2048, 16)):
-            n = B_ * K_
-            regs, op, st, rg, val, idx = _walk_stream(_walk_rng(mode, n),
-                                                      mode, B_, K_)
-            t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
-            work, op_t, st_t, rg_t, val_t, idx_t = (
-                t(a) for a in (regs, op, st, rg, val, idx))
-            m = idx_t.numel()
-            call = lambda: kw.switch_walk_gather_call(
-                mode, work, op_t, st_t, rg_t, val_t, idx_t)
-            large = n > kw.WALK_SMEM_MAX
-            row = dict(n=n, ms=time_cuda(call, inner=5 if large else 20,
-                                         reps=5 if large else 7))
-            if n <= kw.WALK_SMEM_MAX:
-                res_b = torch.empty_like(op_t)
-                ok_b = torch.empty(op_t.shape, dtype=torch.bool, device=dev)
-                cmp_b = torch.empty_like(idx_t)
-                stream = torch.cuda.current_stream(dev).cuda_stream
-                mid = kw.MODES.index(mode)
-                row["kernel_ms"] = time_cuda(lambda: kw._SMEM(
-                    mid, work.data_ptr(), S, R, K_, op_t.data_ptr(),
-                    st_t.data_ptr(), rg_t.data_ptr(), val_t.data_ptr(), n,
-                    res_b.data_ptr(), ok_b.data_ptr(), idx_t.data_ptr(),
-                    cmp_b.data_ptr(), m, stream), inner=50, reps=7)
-            if n > 16 and (mode != "serial" or n <= 4096):
-                row["plain_ms"] = time_cuda(lambda: kw.switch_walk_plain(
-                    mode, work, op_t, st_t, rg_t, val_t, idx_t),
-                    inner=1, reps=3)
-            row["bound_ms"], row["bound_by"] = _walk_bound(op, st, rg, m)
-            rows[f"{mode}@{n}"] = row
-    print("walk (b): per call / bare / plain (ms), bound: " + "; ".join(
-        f"{k} {r['ms']:.5f} / {r.get('kernel_ms', float('nan')):.5f} / "
-        f"{r.get('plain_ms', float('nan')):.4f}, {r['bound_ms']:.6f} "
-        f"({r['bound_by']})" for k, r in rows.items()), flush=True)
+    for name, mode, (regs, op, st, rg, val, idx) in streams:
+        n = op.size
+        t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+        work, op_t, st_t, rg_t, val_t, idx_t = (
+            t(a) for a in (regs, op, st, rg, val, idx))
+        m = idx_t.numel()
+        call = lambda: kw.switch_walk_gather_call(
+            mode, work, op_t, st_t, rg_t, val_t, idx_t)
+        large = n > kw.WALK_SMEM_MAX
+        row = dict(n=n, ms=time_cuda(call, inner=5 if large else 20,
+                                     reps=5 if large else 7))
+        if not large:
+            res_b = torch.empty_like(op_t)
+            ok_b = torch.empty(op_t.shape, dtype=torch.bool, device=dev)
+            cmp_b = torch.empty_like(idx_t)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            mid = kw.MODES.index(mode)
+            row["kernel_ms"] = time_cuda(lambda: kw._SMEM(
+                mid, work.data_ptr(), S, R, op.shape[1], op_t.data_ptr(),
+                st_t.data_ptr(), rg_t.data_ptr(), val_t.data_ptr(), n,
+                res_b.data_ptr(), ok_b.data_ptr(), idx_t.data_ptr(),
+                cmp_b.data_ptr(), m, None, stream), inner=50, reps=7)
+        if n >= 4096 and name.startswith(mode):
+            dev_us, kernels, _ = _profile_steps(call)
+            row["device_us"] = dev_us if kernels else None
+            if large:
+                row["device_kernels"] = [(_kernel_name(k), c, round(t_, 2))
+                                         for t_, k, c in kernels]
+        if n > 16 and name.startswith(mode) and (mode != "serial"
+                                                 or n <= 4096):
+            row["plain_ms"] = time_cuda(lambda: kw.switch_walk_plain(
+                mode, work, op_t, st_t, rg_t, val_t, idx_t),
+                inner=1, reps=3)
+        row["bound_ms"], row["bound_by"] = _walk_bound(op, st, rg, m)
+        rows[name] = row
+    fmt = lambda x, d: "nan" if x is None else f"{x:.{d}f}"
+    print("walk (b): per call / bare / device / plain (ms, device us), "
+          "bound: " + "; ".join(
+              f"{k} {r['ms']:.5f} / {fmt(r.get('kernel_ms'), 5)} / "
+              f"{fmt(r.get('device_us'), 2)} us / "
+              f"{fmt(r.get('plain_ms'), 4)}, {r['bound_ms']:.6f} "
+              f"({r['bound_by']})" for k, r in rows.items()), flush=True)
+    for k, r in rows.items():
+        if r.get("device_kernels"):
+            print(f"walk (b) {k} device kernels: " + "; ".join(
+                f"{n_} x{c} {t_} us" for n_, c, t_ in r["device_kernels"]),
+                flush=True)
     return rows
 
 
@@ -4548,11 +4728,9 @@ def walk_profile(tk, cfg):
     profiler: exactly one device kernel, the single-CTA walk, and no
     device -> host copy (nothing is drained); and where its host time
     goes: ``execute_batch`` with the packet metadata ``build_packets``
-    gives (and in pallas mode), the walk's launcher alone and its bare C
-    call, on an idle card.  main() runs it right after
-    phase 10's profiles: run at the end of the script on the H100, its
-    windows came back empty 1 of 2 times in one run and 3 of 3 in
-    another; an empty window is taken again, up to 6 times."""
+    gives (and in pallas mode), the walk's launcher alone, its fast-path
+    tests, the precise checks those skip, and its bare C call, on an idle
+    card.  main() runs it right after phase 10's profiles."""
     from repro_torch.core.engine import SwitchEngine
     eng = SwitchEngine(cfg, device="cuda")
     pkts = _ycsb_group(np.random.default_rng(SEED + 22), cfg, B)
@@ -4567,7 +4745,7 @@ def walk_profile(tk, cfg):
     check(pb.mode == "affine", f"walk (c): auto resolved {pb.mode}")
     host_us = statistics.median(host[1:]) * 1e6
     dev_us, rows, attempts = _profile_steps(
-        lambda: eng.execute_batch(pkts, mode="auto"), tries=6)
+        lambda: eng.execute_batch(pkts, mode="auto"))
     kernels = [(t, k, c) for t, k, c in rows
                if not k.startswith(("Memcpy", "Memset"))]
     d2h = sum(c for _, k, c in rows if "DtoH" in k)
@@ -4598,11 +4776,15 @@ def walk_profile(tk, cfg):
             lambda: eng.execute_batch(pkts, meta, mode="pallas")),
         "launcher": _host_us(lambda: kw.switch_walk_gather_call(
             "affine", eng.registers, op, st, rg, v, ix)),
+        "launcher's fast-path tests": _host_us(lambda: kw._fast(
+            "affine", eng.registers, op, st, rg, v, ix)),
+        "the precise checks it skips": _host_us(lambda: kw._check(
+            "affine", eng.registers, op, st, rg, v, ix)),
         "bare C call": _host_us(lambda: kw._SMEM(
             kw.MODES.index("affine"), eng.registers.data_ptr(), S, R, K,
             op.data_ptr(), st.data_ptr(), rg.data_ptr(), v.data_ptr(), n,
             res.data_ptr(), ok.data_ptr(), ix.data_ptr(), cm.data_ptr(),
-            ix.numel(), stream)),
+            ix.numel(), None, stream)),
     }
     print(f"walk (c) host time of one auto dispatch at N={n}, us, median of "
           f"50 on an idle card: " + "; ".join(f"{k} {u:.1f}"
@@ -4779,8 +4961,8 @@ def walk_path(tk, kw, smi, prof):
     two entries."""
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    err, smem_bytes = walk_kernel_checks(kw, tk, dev)
-    rows = walk_timing(kw, tk, dev)
+    err, smem_bytes, rounds, extra = walk_kernel_checks(kw, tk, dev)
+    rows = walk_timing(kw, tk, dev, extra)
     paths = walk_clusters(tk, smi)
     launches = {}
     for part in ("ycsb", "sharded", "staged", "tpcc_brownout"):
@@ -4808,8 +4990,8 @@ def walk_path(tk, kw, smi, prof):
              plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
              bound_by=main_row["bound_by"], library_ms=None,
              kernel_ms=main_row["kernel_ms"], shape=[S * R, B * K],
-             smem_bytes=smem_bytes, by_mode=rows, profile=prof,
-             paths=paths),
+             smem_bytes=smem_bytes, by_mode=rows, rounds=rounds,
+             profile=prof, paths=paths),
         dict(name="switch_walk", route="cuda", source=src,
              replaces="src/repro/core/engine.py:170",
              replaces_all=replaces, launches=routes["switch_walk"],
@@ -4917,3 +5099,4 @@ def main():
 
 if __name__ == "__main__":
     main()
+    _exit(0)

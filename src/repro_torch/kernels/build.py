@@ -48,7 +48,9 @@ LIBRARIES = {
                       "switch_engine.cu", {
         "switch_walk_smem_bytes": [_ci],
         "switch_walk_smem_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
-                                    _vp, _ci, _vp, _vp, _vp, _vp, _ci, _vp],
+                                    _vp, _ci, _vp, _vp, _vp, _vp, _ci, _vp,
+                                    _vp],
+        "switch_walk_scratch_words": [_ci],
         "switch_walk_prep_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
                                     _vp, _ci, _vp, _vp, _vp, _vp, _vp, _vp],
         "switch_walk_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp,

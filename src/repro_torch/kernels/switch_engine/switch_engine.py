@@ -8,10 +8,13 @@ stage; ``_affine_engine_impl`` :170, a segmented associative scan), with
 the result-compaction gather fused in (``_fused_engine_impl`` :232).
 ``switch_walk_gather_call`` is that program on the card: for a stream of
 up to ``WALK_SMEM_MAX`` instructions, ONE launch of the single-CTA walk
-kernel in ``csrc/switch_engine.cu``; a longer stream takes the large
-route (a prep kernel, a stable ``torch.sort`` of the slot keys, the link,
-walk and write-back kernels, then ``result_gather``), with no host sync
-on either route.  A CUDA tensor always goes to the kernels (built at
+kernel in ``csrc/switch_engine.cu`` (a block radix sort of the slot keys,
+then a segmented scan of the affine and staged chains or a walk of each
+serial chain by one thread, in rounds while ADDP results change); a
+longer stream takes the large route (a prep kernel, a stable
+``torch.sort`` of the slot keys, the link kernel, the rounds as
+multi-block scans or chain walks, then ``result_gather``), with no host
+sync on either route.  A CUDA tensor always goes to the kernels (built at
 first use by ``kernels/build.py``), a CPU tensor to the plain versions
 below.  There is no fallback: a failed build or launch raises.
 ``LAUNCHES`` counts kernel launches only, by route and mode:
@@ -57,16 +60,23 @@ NOP, READ, WRITE, ADD, CADD, ADDP = 0, 1, 2, 3, 4, 5
 MODES = ("serial", "staged", "affine")       # kSerial, kStaged, kAffine
 
 # the longest stream the single-CTA walk takes (kWalkSmemMax in
-# csrc/switch_engine.cu: 17 B an instruction plus the 64-bit key sort,
-# 206,848 bytes at 8,192; 16,384 would need twice that)
+# csrc/switch_engine.cu: 19 B an instruction plus the sort's and the
+# scan's region, 223,232 bytes at 8,192; 16,384 would need twice that)
 WALK_SMEM_MAX = 8192
+
+# rounds of serial walks (and of the large route's staged scans) before
+# the one-thread walk takes over (kRoundCap in csrc/switch_engine.cu)
+ROUND_CAP = 8
 
 LAUNCHES = {f"{route}.{mode}": 0 for route in ("switch_walk_smem",
                                                 "switch_walk")
             for mode in MODES}
+_KEY = {mode: (f"switch_walk_smem.{mode}", f"switch_walk.{mode}", i)
+        for i, mode in enumerate(MODES)}
 
 _I32 = torch.int32
-_SMEM = _PREP = _WALK = _STREAM = None    # resolved at the first launch
+# C entry points and the stream getter, resolved at the first launch
+_SMEM = _PREP = _WALK = _SCRATCH = _STREAM = None
 
 
 def by_route(launches=None):
@@ -241,14 +251,17 @@ def switch_walk_plain(mode, registers, op, stage, reg, val, idx=None):
 def _resolve():
     """The C entry points and the raw stream getter, resolved once (after
     the build), so later launches take no lock."""
-    global _SMEM, _PREP, _WALK, _STREAM
+    global _SMEM, _PREP, _WALK, _SCRATCH, _STREAM
     lib = library("switch_engine")
     _SMEM, _PREP = lib.switch_walk_smem_launch, lib.switch_walk_prep_launch
-    _WALK = lib.switch_walk_launch
+    _WALK, _SCRATCH = lib.switch_walk_launch, lib.switch_walk_scratch_words
     _STREAM = raw_stream()
 
 
 def _check(mode, registers, op, stage, reg, val, idx):
+    """The precise checks, for whatever the fast path of
+    ``switch_walk_gather_call`` does not take: raises on a bad argument,
+    else returns the one device of the tensors."""
     if mode not in MODES:
         raise ValueError(f"unknown engine mode {mode!r}")
     if not isinstance(registers, torch.Tensor) or registers.dim() != 2:
@@ -278,45 +291,87 @@ def _check(mode, registers, op, stage, reg, val, idx):
     return same_device(*ts)
 
 
-def switch_walk_gather_call(mode, registers, op, stage, reg, val, idx=None):
+def _fast(mode, registers, op, stage, reg, val, idx):
+    """The CUDA device index when the arguments are what the engine
+    passes (int32, contiguous, one card, [S, R] registers, [B, K] planes,
+    1-D idx), else None; a few attribute tests a tensor."""
+    try:
+        d = registers.get_device()
+        shape = op.shape
+        if (d < 0 or mode not in _KEY or registers.dim() != 2
+                or len(shape) != 2 or stage.shape != shape
+                or reg.shape != shape or val.shape != shape
+                or (idx is not None and idx.dim() != 1)):
+            return None
+        for t in (registers, op, stage, reg, val) if idx is None else (
+                registers, op, stage, reg, val, idx):
+            if (t.dtype is not _I32 or not t.is_contiguous()
+                    or t.get_device() != d):
+                return None
+    except AttributeError:
+        return None
+    return d
+
+
+def switch_walk_gather_call(mode, registers, op, stage, reg, val, idx=None,
+                            rounds=False):
     """One ``serial`` / ``staged`` / ``affine`` dispatch with its result
     compaction.
 
     registers: [S, R] int32, contiguous, updated in place; op/stage/reg/
     val: [B, K] int32, contiguous; idx: [M] int32 flat positions into the
     result plane (clamped), or None.  Returns (registers, res [B, K]
-    int32, ok [B, K] bool, compact [M] int32 or None).
+    int32, ok [B, K] bool, compact [M] int32 or None), and with
+    ``rounds=True`` a fifth item: a [1] int32 tensor on the registers'
+    device, the rounds the kernel took (affine 1; negative: ``-ROUND_CAP``
+    serial rounds, or staged rounds on the large route, did not converge
+    and the one-thread walk ran; 0 on the CPU, whose plain versions take
+    no rounds).
 
     On the card, N = B * K <= ``WALK_SMEM_MAX`` is one launch of the
     single-CTA walk; a longer stream takes the large route.  Neither
-    copies anything to the host or waits for the device."""
-    dev = _check(mode, registers, op, stage, reg, val, idx)
-    if dev.type == "cpu":
-        return switch_walk_plain(mode, registers, op, stage, reg, val, idx)
-    S, R = registers.shape
+    copies anything to the host or waits for the device.  The host path
+    of the engine's own tensors is a few attribute tests, the outputs'
+    allocation and the C call; anything else takes the precise checks."""
+    d = _fast(mode, registers, op, stage, reg, val, idx)
+    if d is None:
+        dev = _check(mode, registers, op, stage, reg, val, idx)
+        if dev.type == "cpu":
+            out = switch_walk_plain(mode, registers, op, stage, reg, val,
+                                    idx)
+            return out + (torch.zeros(1, dtype=_I32),) if rounds else out
+        d = dev.index
     B, K = op.shape
     n = B * K
-    m = 0 if idx is None else idx.numel()
-    res = torch.empty((B, K), dtype=_I32, device=dev)
-    ok = torch.empty((B, K), dtype=torch.bool, device=dev)
-    if n == 0:
-        return registers, res, ok, None if idx is None else idx.clone()
+    m = 0 if idx is None else idx.shape[0]
+    res = torch.empty_like(op)
+    ok = torch.empty_like(op, dtype=torch.bool)
+    taken = torch.zeros(1, dtype=_I32, device=op.device) if rounds else None
+    if n == 0 or registers.numel() == 0:
+        _check(mode, registers, op, stage, reg, val, idx)   # raises if bad
+        out = (registers, res, ok, None if idx is None else idx.clone())
+        return out + (taken,) if rounds else out
     if _SMEM is None:
         _resolve()
-    mid = MODES.index(mode)
-    stream = _STREAM(dev.index)
+    S, R = registers.shape
+    smem_key, large_key, mid = _KEY[mode]
+    stream = _STREAM(d)
     if n <= WALK_SMEM_MAX:
         compact = None if idx is None else torch.empty_like(idx)
         err = _SMEM(mid, registers.data_ptr(), S, R, K, op.data_ptr(),
                     stage.data_ptr(), reg.data_ptr(), val.data_ptr(), n,
                     res.data_ptr(), ok.data_ptr(),
                     idx.data_ptr() if m else None,
-                    compact.data_ptr() if m else None, m, stream)
-        raise_on(err, "switch_walk_smem")
-        LAUNCHES[f"switch_walk_smem.{mode}"] += 1
-        return registers, res, ok, compact
+                    compact.data_ptr() if m else None, m,
+                    taken.data_ptr() if rounds else None, stream)
+        if err:
+            raise_on(err, "switch_walk_smem")
+        LAUNCHES[smem_key] += 1
+        out = (registers, res, ok, compact)
+        return out + (taken,) if rounds else out
     # the large route: per-instruction keys, seeds and flags; the stable
-    # slot order by torch.sort; the link, walk and write-back kernels
+    # slot order by torch.sort; the link kernel and the rounds
+    dev = op.device
     key = torch.empty(n, dtype=torch.int64, device=dev)
     cur = torch.empty(n, dtype=_I32, device=dev)
     vq = torch.empty(n, dtype=_I32, device=dev)
@@ -327,13 +382,14 @@ def switch_walk_gather_call(mode, registers, op, stage, reg, val, idx=None):
                 vq.data_ptr(), res.data_ptr(), stream)
     raise_on(err, "switch_walk_prep")
     skey, perm = torch.sort(key, stable=True)
-    ent = torch.empty(n if mode == "serial" else 1, dtype=_I32, device=dev)
+    scratch = torch.empty(_SCRATCH(n), dtype=_I32, device=dev)
     err = _WALK(mid, registers.data_ptr(), S, R, n, skey.data_ptr(),
-                perm.data_ptr(), ent.data_ptr(), opf.data_ptr(),
-                vq.data_ptr(), cur.data_ptr(), res.data_ptr(),
-                ok.data_ptr(), stream)
+                perm.data_ptr(), opf.data_ptr(), vq.data_ptr(),
+                cur.data_ptr(), res.data_ptr(), ok.data_ptr(),
+                scratch.data_ptr(), stream)
     raise_on(err, "switch_walk")
-    LAUNCHES[f"switch_walk.{mode}"] += 1
+    LAUNCHES[large_key] += 1
     compact = None if idx is None else result_gather_call(res.view(-1),
                                                           idx)
-    return registers, res, ok, compact
+    out = (registers, res, ok, compact)
+    return out + (scratch[:1],) if rounds else out
