@@ -174,7 +174,14 @@ Phases (each one exits non-zero on failure):
               width against CPU port clusters: YCSB-A 8 x 256 and its
               recovery, sharded n = 2 beside n = 1, a safe-ADDP staged
               stream at B = 256, and the TPC-C brown-out whose N = 32,768
-              reload takes the large route.
+              reload takes the large route;
+22. oltp_cluster — ``examples/oltp_cluster_torch.py``, the paper's
+              8-node cluster example on the port's timing simulator (host
+              only, no kernel), in a subprocess: all three sections
+              printed (YCSB-A P4DB / No-Switch / lock manager in the
+              switch, TPC-C, the open-loop sweep), a P4DB / No-Switch
+              speedup above 1 and a saturation knee; its lines and wall
+              time.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -5002,6 +5009,50 @@ def walk_path(tk, kw, smi, prof):
     ]
 
 
+# --------------------------------------------------------------- phase 22 --
+
+OLTP_SECTIONS = ("YCSB-A, 8 nodes x 20 workers",
+                 "TPC-C (warm transactions), 8 warehouses",
+                 "Open-loop serving, YCSB-A")
+SPEEDUP_LINE = re.compile(r"speedup P4DB / No-Switch: (\S+)x")
+KNEE_LINE = re.compile(r"saturation knee \(.*\): (\S+) M/s")
+
+
+def oltp_cluster(smi):
+    """Phase 22: ``examples/oltp_cluster_torch.py`` (the timing simulator
+    on the host; it launches no kernel) in a subprocess.  Returns its
+    speedup, knee and wall seconds."""
+    script = (Path(__file__).resolve().parent / "examples"
+              / "oltp_cluster_torch.py")
+    check(script.exists(), f"oltp_cluster: {script} is missing")
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, str(script)],
+                             capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("oltp_cluster: the example ran past 300 s")
+    took = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"oltp_cluster: the example exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    for line in out.stdout.splitlines():
+        print(f"oltp_cluster: | {line}", flush=True)
+    missing = [h for h in OLTP_SECTIONS if h not in out.stdout]
+    check(not missing, f"oltp_cluster: sections not printed: {missing}")
+    speedup = SPEEDUP_LINE.search(out.stdout)
+    knee = KNEE_LINE.search(out.stdout)
+    check(speedup is not None and float(speedup.group(1)) > 1,
+          f"oltp_cluster: P4DB / No-Switch speedup "
+          f"{speedup and speedup.group(1)}")
+    check(knee is not None and float(knee.group(1)) > 0,
+          f"oltp_cluster: saturation knee {knee and knee.group(1)}")
+    print(f"oltp_cluster [{smi}]: phase 22 took {took:.1f} s (the example's "
+          f"wall time, host only); speedup {speedup.group(1)}x, knee "
+          f"{knee.group(1)} M/s", flush=True)
+    return dict(speedup=float(speedup.group(1)),
+                knee_m_per_s=float(knee.group(1)), seconds=took)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -5088,6 +5139,7 @@ def main():
                               bounded=[_by_route(r["recover_launches"])
                                        for r in dur["bounded"]])
     kernels += walk
+    oltp_cluster(smi)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
 """Every module of the port imports with ``jax`` and ``repro`` blocked: the
 port keeps its own copy of what it needs and imports torch and numpy
 only.  Imports inside functions run only when called, so the port's
-sources and ``chip_smoke.py`` are also read with ``ast`` at every
-depth."""
+sources, its examples and ``chip_smoke.py`` are also read with ``ast``
+at every depth, and none of them may import ``benchmarks`` either: that
+package imports ``repro``."""
 import ast
 import os
 import subprocess
@@ -17,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "repro"):
+for name in ("jax", "jaxlib", "repro", "benchmarks"):
     sys.modules[name] = None           # any import of them now fails
 import repro_torch
 mods = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
@@ -37,9 +38,13 @@ def test_port_imports_without_jax_or_repro():
     assert int(out.stdout.split()[-1]) == n_files
 
 
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
 def _forbidden_imports(path: Path):
-    """Every import of jax, jaxlib or repro in ``path``, at any depth
-    (module level, inside functions, classes or conditionals)."""
+    """Every import of jax, jaxlib, repro or benchmarks in ``path``, at
+    any depth (module level, inside functions, classes or
+    conditionals)."""
     tree = ast.parse(path.read_text())
     names = [(n.lineno, a.name) for n in ast.walk(tree)
              if isinstance(n, ast.Import) for a in n.names]
@@ -47,7 +52,7 @@ def _forbidden_imports(path: Path):
               if isinstance(n, ast.ImportFrom) and n.module
               and n.level == 0]
     return [f"{path.relative_to(ROOT)}:{line}: {m}" for line, m in names
-            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+            if m.split(".")[0] in FORBIDDEN]
 
 
 def test_chip_smoke_imports_nothing_of_jax_or_repro():
@@ -66,6 +71,7 @@ def test_port_examples_import_nothing_of_jax_or_repro():
     """The port's example scripts name neither jax nor the JAX package."""
     files = sorted((ROOT / "examples").glob("*_torch.py"))
     assert ROOT / "examples" / "quickstart_torch.py" in files
+    assert ROOT / "examples" / "oltp_cluster_torch.py" in files
     bad = [b for f in files for b in _forbidden_imports(f)]
     assert not bad, bad
 
