@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (phase 23 uses
+every visible card; one is enough).
 
     python3 chip_smoke.py
 
@@ -181,7 +182,24 @@ Phases (each one exits non-zero on failure):
               printed (YCSB-A P4DB / No-Switch / lock manager in the
               switch, TPC-C, the open-loop sweep), a P4DB / No-Switch
               speedup above 1 and a saturation knee; its lines and wall
-              time.
+              time;
+23. multicard — the multi-switch register plane across cards on phase
+              4's full-width YCSB-A switch: with the default device a
+              sharded switch puts plane i on ``cuda:(i % device_count)``
+              (the JAX package's one-plane-a-device rule; one card holds
+              every plane): (a) each plane's registers on its card at
+              n_switches 2 and 4; (b) 2 x 256 YCSB-A txns at n = 1, 2, 4
+              and n = 4 with async dispatch, equal to n = 1 (results,
+              GIDs, per-key reads, WAL streams) and to a CPU port cluster
+              (every plane's registers); (c) cross-shard rows on a
+              round-robin placement in ``pallas`` mode and, with cross-
+              shard ADDP, in ``auto`` mode at n = 2 and 4; (d) at n = 2
+              with a standby: checkpoint, crash, recover_switch,
+              fail_over, a migration and a brown-out against the CPU
+              port; (e) with two cards or more, phase 4 on the last card
+              (every launcher makes its tensors' card current); the
+              cards, the placement, dispatches per plane and run_batch
+              seconds at n = 1, 2, 4.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -404,8 +422,9 @@ def kernel_checks(tk, lib, dev):
 
     ms_txn = time_cuda(lambda: tk.switch_txn_gather_call(
         work, op_t, st_t, rg_t, val_t, R, idx_t), inner=50, reps=11)
+    card = work.get_device()
     kernel_ms_txn = time_cuda(lambda: lib.switch_txn_smem_launch(
-        work.data_ptr(), n_slots, R, op_t.data_ptr(), st_t.data_ptr(),
+        card, work.data_ptr(), n_slots, R, op_t.data_ptr(), st_t.data_ptr(),
         rg_t.data_ptr(), val_t.data_ptr(), n, res_buf.data_ptr(),
         ok_buf.data_ptr(), idx_t.data_ptr(), cmp_buf.data_ptr(), m, stream),
         inner=200, reps=11)
@@ -414,18 +433,19 @@ def kernel_checks(tk, lib, dev):
     uni = [t(a) for a in _check_stream(np.random.default_rng(SEED + 8), n,
                                        skew=0.0)]
     uniform_ms = time_cuda(lambda: lib.switch_txn_smem_launch(
-        work.data_ptr(), n_slots, R, uni[1].data_ptr(), uni[2].data_ptr(),
-        uni[3].data_ptr(), uni[5].data_ptr(), n, res_buf.data_ptr(),
-        ok_buf.data_ptr(), uni[6].data_ptr(), cmp_buf.data_ptr(), m, stream),
+        card, work.data_ptr(), n_slots, R, uni[1].data_ptr(),
+        uni[2].data_ptr(), uni[3].data_ptr(), uni[5].data_ptr(), n,
+        res_buf.data_ptr(), ok_buf.data_ptr(), uni[6].data_ptr(),
+        cmp_buf.data_ptr(), m, stream),
         inner=200, reps=11)
     # and at N = 16 (a B=1 group; the 256 tile): launch plus the least
     # work the kernel does
     tiny = [t(a) for a in _check_stream(np.random.default_rng(SEED + 7), 16)]
     tiny_ms = time_cuda(lambda: lib.switch_txn_smem_launch(
-        work.data_ptr(), n_slots, R, tiny[1].data_ptr(), tiny[2].data_ptr(),
-        tiny[3].data_ptr(), tiny[5].data_ptr(), 16, res_buf.data_ptr(),
-        ok_buf.data_ptr(), tiny[6].data_ptr(), cmp_buf.data_ptr(), 16,
-        stream), inner=200, reps=11)
+        card, work.data_ptr(), n_slots, R, tiny[1].data_ptr(),
+        tiny[2].data_ptr(), tiny[3].data_ptr(), tiny[5].data_ptr(), 16,
+        res_buf.data_ptr(), ok_buf.data_ptr(), tiny[6].data_ptr(),
+        cmp_buf.data_ptr(), 16, stream), inner=200, reps=11)
     large_ms = time_cuda(lambda: large_path(op_t, st_t, rg_t, val_t, idx_t),
                          inner=50, reps=11)
     plain_ms_txn = time_cuda(lambda: tk.result_gather_plain(
@@ -474,7 +494,7 @@ def kernel_checks(tk, lib, dev):
                     and idx_t.numel() > 0):
                 fail("result_gather replica: a check failed")
             out = torch.empty_like(idx_t) if alloc else out_buf
-            fn(src.data_ptr(), n, idx_t.data_ptr(), out.data_ptr(), m,
+            fn(d, src.data_ptr(), n, idx_t.data_ptr(), out.data_ptr(), m,
                get_stream(d) if lookup else h)
         return launch
 
@@ -617,6 +637,7 @@ def scan_kernel_checks(tk, lib, dev):
                     flat, ix, lo, hi, cap), f"M={m} offset {off} cap {cap}"))
 
     stream_h = torch.cuda.current_stream(dev).cuda_stream
+    card = flat.get_device()
 
     def timings(ix, lo, hi, cap, inner):
         """Per call (the launcher), bare C launch, plain version and bound
@@ -632,18 +653,18 @@ def scan_kernel_checks(tk, lib, dev):
             plain = lambda: tk.scan_prune_gather_plain(flat, ix, lo, hi, cap)
         if m <= smax:
             bare = lambda: lib.scan_prune_launch(
-                flat.data_ptr(), n_slots, ip, m, lo, hi, cap, out.data_ptr(),
-                stream_h)
+                card, flat.data_ptr(), n_slots, ip, m, lo, hi, cap,
+                out.data_ptr(), stream_h)
         else:
             n_scr = lib.scan_prune_scratch_len(m)
             scratch = torch.empty(n_scr, dtype=torch.int32, device=dev)
             check(lib.scan_prune_large_launch(
-                flat.data_ptr(), n_slots, ip, m, lo, hi, cap, out.data_ptr(),
-                scratch.data_ptr(), n_scr - 1, stream_h) != 0,
+                card, flat.data_ptr(), n_slots, ip, m, lo, hi, cap,
+                out.data_ptr(), scratch.data_ptr(), n_scr - 1, stream_h) != 0,
                 "scan_prune_large_launch accepted a scratch one short")
             bare = lambda: lib.scan_prune_large_launch(
-                flat.data_ptr(), n_slots, ip, m, lo, hi, cap, out.data_ptr(),
-                scratch.data_ptr(), n_scr, stream_h)
+                card, flat.data_ptr(), n_slots, ip, m, lo, hi, cap,
+                out.data_ptr(), scratch.data_ptr(), n_scr, stream_h)
         ms = time_cuda(call, inner=inner, reps=11)
         bare_ms = time_cuda(bare, inner=inner, reps=11)
         device_us = _profile_steps(call)[0]     # the kernels, profiler
@@ -765,12 +786,14 @@ def moe_route_checks(mr, lib, dev):
     # edges; (E, C, top_k) as route would call it
     pmax = mr.PLAN_MAX_N
     one = torch.zeros(1, dtype=torch.int32, device=dev)
-    check(lib.moe_plan_launch(one.data_ptr(), pmax + 1, 128, 8, 8,
+    card = one.get_device()
+    check(lib.moe_plan_launch(card, one.data_ptr(), pmax + 1, 128, 8, 8,
                               one.data_ptr(), one.data_ptr(), one.data_ptr(),
                               one.data_ptr(), 0) != 0
-          and lib.moe_plan_launch(one.data_ptr(), 1, mr.PLAN_MAX_E + 1, 8,
-                                  8, one.data_ptr(), one.data_ptr(),
-                                  one.data_ptr(), one.data_ptr(), 0) != 0,
+          and lib.moe_plan_launch(card, one.data_ptr(), 1,
+                                  mr.PLAN_MAX_E + 1, 8, 8, one.data_ptr(),
+                                  one.data_ptr(), one.data_ptr(),
+                                  one.data_ptr(), 0) != 0,
           "moe_plan_launch accepted a plan past PLAN_MAX_N or PLAN_MAX_E")
     plans = {}
     for name, ids in cases.items():
@@ -816,7 +839,8 @@ def moe_route_checks(mr, lib, dev):
         adm = torch.empty(n, dtype=torch.bool, device=dev)
         r_ms = time_cuda(lambda: mr.moe_route_call(s_), inner=200, reps=11)
         r_bare = time_cuda(lambda: lib.moe_route_launch(
-            s_.data_ptr(), n, out.data_ptr(), stream_h), inner=200, reps=11)
+            card, s_.data_ptr(), n, out.data_ptr(), stream_h), inner=200,
+            reps=11)
         r_plain = time_cuda(lambda: mr.moe_route_plain(s_), inner=200,
                             reps=11)
         # the nearest single PyTorch call computes each run's first index;
@@ -826,8 +850,9 @@ def moe_route_checks(mr, lib, dev):
         plan = lambda: mr.route_plan_call(t, 128, cap, 8)
         chain = lambda: mr._plan_from_sort(t, 128, cap, 8, mr.moe_route_call)
         o_p, s_p, k_p = (buf[i].data_ptr() for i in range(3))
-        bare = lambda: lib.moe_plan_launch(t.data_ptr(), n, 128, cap, 8, o_p,
-                                           s_p, adm.data_ptr(), k_p, stream_h)
+        bare = lambda: lib.moe_plan_launch(card, t.data_ptr(), n, 128, cap,
+                                           8, o_p, s_p, adm.data_ptr(), k_p,
+                                           stream_h)
         turns = [time_cuda(f, inner=200, reps=11)
                  for f in (plan, chain, chain, plan)]
         p_bare = time_cuda(bare, inner=200, reps=11)
@@ -951,7 +976,8 @@ def _same_clusters(a, b, what):
     check(_wal_heads(a) == _wal_heads(b), f"{what}: WAL hash heads differ")
 
 
-def main_path(tk, label):
+def main_path(tk, label, device="cuda"):
+    """Phase 4 on ``device`` (phase 23 (e) runs it on the last card)."""
     from repro_torch.core.hotset import build_hot_index
     from repro_torch.core.packets import SwitchConfig
     from repro_torch.db.dbms import Cluster
@@ -963,21 +989,22 @@ def main_path(tk, label):
     sample = ycsb.generate(np.random.default_rng(SEED), 4000, p)
     hi = build_hot_index(ycsb.traces(sample), top_k=400, switch=cfg)
     txns = ycsb.generate(np.random.default_rng(SEED + 1), 8 * B, p)
-    gpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cuda")
+    gpu = Cluster(8, cfg, hi, switch_mode="pallas", device=device)
     cpu = Cluster(8, cfg, hi, switch_mode="pallas", device="cpu")
     for c in (gpu, cpu):
         c.snapshot_offload()
     print(f"main: setup {time.perf_counter() - t0:.1f} s "
-          f"({len(hi.placement.slot)} hot keys)", flush=True)
+          f"({len(hi.placement.slot)} hot keys, registers on "
+          f"{gpu.switch.registers.device})", flush=True)
 
     _reset(tk)
     out_gpu, times = [], []
     for b in range(8):
         batch = txns[b * B:(b + 1) * B]
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         out_gpu += gpu.run_batch(batch)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
         times.append(time.perf_counter() - t0)
     launches = dict(tk.LAUNCHES)
     check(launches["switch_txn_smem"] > 0, f"the single-CTA switch_txn was "
@@ -4673,8 +4700,9 @@ def walk_timing(kw, tk, dev, extra):
             stream = torch.cuda.current_stream(dev).cuda_stream
             mid = kw.MODES.index(mode)
             row["kernel_ms"] = time_cuda(lambda: kw._SMEM(
-                mid, work.data_ptr(), S, R, op.shape[1], op_t.data_ptr(),
-                st_t.data_ptr(), rg_t.data_ptr(), val_t.data_ptr(), n,
+                work.get_device(), mid, work.data_ptr(), S, R, op.shape[1],
+                op_t.data_ptr(), st_t.data_ptr(), rg_t.data_ptr(),
+                val_t.data_ptr(), n,
                 res_b.data_ptr(), ok_b.data_ptr(), idx_t.data_ptr(),
                 cmp_b.data_ptr(), m, None, stream), inner=50, reps=7)
         if n >= 4096 and name.startswith(mode):
@@ -4788,7 +4816,8 @@ def walk_profile(tk, cfg):
         "the precise checks it skips": _host_us(lambda: kw._check(
             "affine", eng.registers, op, st, rg, v, ix)),
         "bare C call": _host_us(lambda: kw._SMEM(
-            kw.MODES.index("affine"), eng.registers.data_ptr(), S, R, K,
+            eng.registers.get_device(), kw.MODES.index("affine"),
+            eng.registers.data_ptr(), S, R, K,
             op.data_ptr(), st.data_ptr(), rg.data_ptr(), v.data_ptr(), n,
             res.data_ptr(), ok.data_ptr(), ix.data_ptr(), cm.data_ptr(),
             ix.numel(), None, stream)),
@@ -5052,6 +5081,268 @@ def oltp_cluster(smi):
     return dict(speedup=float(speedup.group(1)),
                 knee_m_per_s=float(knee.group(1)), seconds=took)
 
+# --------------------------------------------------------------- phase 23 --
+
+def _sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _planes(c):
+    sw = c.switch
+    return sw.planes if hasattr(sw, "planes") else [sw]
+
+
+def _mixed_stream(rng, keys, n_txns, pool):
+    """tests/test_multiswitch.py's ``_mixed_txns`` shape over ``keys``:
+    1-4 distinct keys a txn, each op drawn from ``pool``, operands 1-8; an
+    ADDP forwards the result of an earlier op of its txn (as a first op it
+    is an ADD)."""
+    from repro_torch.core.packets import ADD, ADDP
+    from repro_torch.db.txn import Txn, node_of
+    txns = []
+    for _ in range(n_txns):
+        picks = rng.choice(len(keys), size=int(rng.integers(1, 5)),
+                           replace=False)
+        ops = []
+        for j, i in enumerate(picks):
+            o, v = pool[int(rng.integers(len(pool)))], int(rng.integers(1, 9))
+            if o == ADDP:
+                o, v = (ADDP, int(rng.integers(j))) if j else (ADD, v)
+            ops.append((o, keys[int(i)], v))
+        txns.append(Txn("mixed", ops, node_of(ops[0][1])))
+    return txns
+
+
+def _round_robin(keys, n):
+    """tests/test_multiswitch.py's ``_round_robin_placement`` at full
+    width: keys dealt across the n planes, then stages, then registers,
+    so every plane holds keys and co-accessed keys straddle planes."""
+    from repro_torch.core.hotset import HotIndex
+    from repro_torch.core.layout import Placement
+    return HotIndex(Placement(slot={k: (i % n, (i // n) % S, i // (n * S))
+                                    for i, k in enumerate(keys)}))
+
+
+def _cross_rows(txns, hi):
+    """Hot txns whose keys lie on more than one plane."""
+    return sum(1 for t in txns if all(hi.is_hot(k) for _, k, _ in t.ops)
+               and len({hi.placement.slot[k][0] for _, k, _ in t.ops}) > 1)
+
+
+def _run_timed(c, txns):
+    """``txns`` through ``run_batch`` in groups of 256, every card
+    synchronised around each call; (results, seconds).  An async cluster
+    is drained after the timed calls: that fills its results in place."""
+    outs, took = [], 0.0
+    for b in range(0, len(txns), B):
+        batch = copy.deepcopy(txns[b:b + B])
+        _sync_cards()
+        t0 = time.perf_counter()
+        outs.append(c.run_batch(batch))
+        _sync_cards()
+        took += time.perf_counter() - t0
+    c.drain()
+    return [r for out in outs for r in out], took
+
+
+def _same_as_n1(c1, r1, cn, rn, hot, what, wal="order"):
+    """Results, GIDs, per-key reads and WAL streams of an n-plane cluster
+    against the one-plane cluster of the same txns.  ``wal``: "order",
+    each node's (kind, tid) records equal one for one; "records", the
+    same records in any order (an auto-mode cluster splits a hot group at
+    multipass ADDP txns, and which txns are multipass depends on the
+    placement); None, not held here (an async cluster logs its results at
+    its drains; its WAL is held against its CPU port twin)."""
+    check(rn == r1, f"{what}: per-txn results differ from n_switches=1")
+    check(cn.switch.next_gid == c1.switch.next_gid,
+          f"{what}: GIDs differ from n_switches=1")
+    check(cn.read_batch(hot) == c1.read_batch(hot),
+          f"{what}: per-key reads differ from n_switches=1")
+    stream = lambda c: [[(e.kind, e.tid) for e in n.wal] for n in c.nodes]
+    if wal == "records":
+        stream = lambda c: [sorted((e.kind, e.tid) for e in n.wal)
+                            for n in c.nodes]
+    check(wal is None or stream(cn) == stream(c1),
+          f"{what}: WAL records differ from n_switches=1")
+
+
+def multicard_path(tk, smi):
+    """Phase 23: the multi-switch register plane across cards, on phase
+    4's full-width YCSB-A switch (24 x 65536 registers a plane).  With the
+    default device a sharded switch puts plane i on ``cuda:(i %
+    device_count)`` (``core/engine.py::plane_devices``, the JAX package's
+    one-plane-a-device rule); on one card every plane is on cuda:0.
+    (a) at n_switches 2 and 4, each plane's registers on its card; (b) 2 x
+    256 YCSB-A txns at n = 1, 2, 4 (and n = 4 with async dispatch, a
+    thread a plane): results, GIDs, per-key reads and WAL streams equal
+    to n = 1, and every plane's registers, stats and WAL heads equal to a
+    CPU port cluster of the same n; (c) a ``_mixed_txns`` stream of cross-
+    shard rows at n = 2 and 4 in ``pallas`` mode (READ, WRITE, ADD, CADD)
+    and in ``auto`` mode with cross-shard ADDP as well, against n = 1 and
+    the CPU port; (d) at n = 2 with a standby: checkpoint, crash,
+    recover_switch, crash, fail_over, a migration and a brown-out, each
+    against the CPU port; (e) with two cards or more, phase 4 on the last
+    card.  Prints the cards, the placement, dispatches per plane and
+    run_batch seconds at n = 1, 2, 4 (for the record, not a claim).
+    Returns the cards, the placements and the launches of each run."""
+    from repro_torch.core.engine import plane_devices
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import (ADD, ADDP, CADD, READ, WRITE,
+                                          SwitchConfig)
+    from repro_torch.db import migrate as mig
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import ycsb
+
+    t_phase = time.perf_counter()
+    p = ycsb.YCSBParams(variant="A")            # phase 4's
+    cards = torch.cuda.device_count()
+    print(f"multicard [{smi}]: {cards} card{'s' if cards > 1 else ''} "
+          f"visible" + ("" if cards > 1 else ": every plane on cuda:0, the "
+                        "placement rule's one-card case"), flush=True)
+    sample = ycsb.generate(np.random.default_rng(SEED), 4000, p)
+    txns = ycsb.generate(np.random.default_rng(SEED + 3), 2 * B, p)
+    cfgs, his = {}, {}
+    for n in (1, 2, 4):
+        cfgs[n] = SwitchConfig(n_stages=S, regs_per_stage=R, max_instrs=K,
+                               n_switches=n)
+        his[n] = build_hot_index(ycsb.traces(sample), top_k=400,
+                                 switch=cfgs[n])
+    hot = sorted(his[1].placement.slot)
+    check(all(sorted(h.placement.slot) == hot for h in his.values()),
+          "multicard: hot sets differ across shard counts")
+
+    def pair(n, mode="pallas", hi=None, **kw):
+        made = [Cluster(8, cfgs[n], his[n] if hi is None else hi,
+                        switch_mode=mode, device=d, **kw)
+                for d in ("cuda", "cpu")]
+        for c in made:
+            c.snapshot_offload()
+        return made
+
+    # (a) and (b)
+    rows, worlds = [], {}
+    record = dict(cards=cards, placement={}, launches={})
+    for n, kw in ((1, {}), (2, {}), (4, {}),
+                  (4, dict(async_hot=True, max_inflight=4))):
+        gpu, cpu = pair(n, **kw)
+        placed = [pl.registers.device for pl in _planes(gpu)]
+        want = plane_devices(n, "cuda", cards)
+        check(n == 1 or placed == want,
+              f"multicard (a): n={n} planes on {placed}, expected {want}")
+        _reset(tk)
+        out, took = _run_timed(gpu, txns)
+        launches = _nonzero(_counts(tk))
+        out_cpu, _ = _run_timed(cpu, txns)
+        what = f"multicard (b) n={n}{' async' if kw else ''}"
+        check(out == out_cpu, f"{what}: results differ from the CPU port")
+        _same_clusters(gpu, cpu, what)
+        check(launches.get("switch_txn_smem", 0) > 0,
+              f"{what}: the single-CTA switch_txn was not launched: "
+              f"{launches}")
+        per_plane = [pl.dispatch_count for pl in _planes(gpu)]
+        holding = {sl[0] for sl in his[n].placement.slot.values()}
+        check(all(per_plane[i] for i in holding),
+              f"{what}: a plane that holds hot keys took no dispatch: "
+              f"{per_plane}")
+        if n > 1:
+            _same_as_n1(worlds[1][0], worlds[1][1], gpu, out, hot, what,
+                        wal=None if kw else "order")
+        worlds.setdefault(n, (gpu, out))
+        record["placement"][n] = [str(d) for d in placed]
+        record["launches"][what[len("multicard "):]] = launches
+        rows.append(f"n={n}{' async' if kw else ''}: planes on "
+                    f"{[str(d) for d in placed]}, dispatches per plane "
+                    f"{per_plane}, run_batch total {took:.4f} s, "
+                    f"{_cross_rows(txns, his[n])} cross-shard hot rows, "
+                    f"launches {launches}")
+    del worlds
+    print("multicard (a), (b): 2 x 256 YCSB-A txns equal to n=1 and to the "
+          "CPU port; " + "; ".join(rows), flush=True)
+
+    # (c) cross-shard rows, with cross-shard ADDP in auto mode, on the
+    # round-robin placement: every plane (every card) holds hot keys
+    rows = []
+    for mode, pool in (("pallas", [READ, WRITE, ADD, CADD]),
+                       ("auto", [READ, WRITE, ADD, CADD, ADDP])):
+        stream = _mixed_stream(np.random.default_rng(SEED + 23), hot,
+                               2 * B, pool)
+        c1 = Cluster(8, cfgs[1], _round_robin(hot, 1), switch_mode=mode,
+                     device="cuda")
+        c1.snapshot_offload()
+        r1, t1 = _run_timed(c1, stream)
+        for n in (2, 4):
+            rr = _round_robin(hot, n)
+            gpu, cpu = pair(n, mode, rr)
+            _reset(tk)
+            out, took = _run_timed(gpu, stream)
+            launches = _nonzero(_counts(tk))
+            out_cpu, _ = _run_timed(cpu, stream)
+            what = f"multicard (c) {mode} n={n}"
+            check(out == out_cpu, f"{what}: results differ from the CPU "
+                  f"port")
+            _same_clusters(gpu, cpu, what)
+            _same_as_n1(c1, r1, gpu, out, hot, what,
+                        wal="order" if mode == "pallas" else "records")
+            check(launches.get("switch_walk_smem.serial", 0) > 0,
+                  f"{what}: no cross-shard row ran its serial minis: "
+                  f"{launches}")
+            per_plane = [pl.dispatch_count for pl in _planes(gpu)]
+            check(all(per_plane), f"{what}: a plane took no dispatch: "
+                  f"{per_plane}")
+            record["launches"][what[len("multicard "):]] = launches
+            rows.append(f"{mode} n={n}: {_cross_rows(stream, rr)} "
+                        f"cross-shard rows, dispatches per plane "
+                        f"{per_plane}, run_batch total {took:.4f} s (n=1 "
+                        f"{t1:.4f} s), launches {launches}")
+    print("multicard (c): " + "; ".join(rows), flush=True)
+
+    # (d) durability on spread planes
+    gpu, cpu = pair(2, standby=True)
+    steps = []
+
+    def both(what, fn):
+        for c in (gpu, cpu):
+            fn(c)
+        _same_state(gpu, cpu, f"multicard (d) {what}")
+        steps.append(what)
+
+    both("first batch", lambda c: c.run_batch(copy.deepcopy(txns[:B])))
+    both("checkpoint", lambda c: c.checkpoint())
+    both("second batch", lambda c: c.run_batch(copy.deepcopy(txns[B:])))
+    before = gpu.switch.read_all()
+    both("crash, recover_switch",
+         lambda c: (c.crash_switch(), c.recover_switch()))
+    check(np.array_equal(before, gpu.switch.read_all()),
+          "multicard (d): registers after recover_switch differ")
+    both("crash, fail_over", lambda c: (c.crash_switch(), c.fail_over()))
+    check(np.array_equal(before, gpu.switch.read_all()),
+          "multicard (d): registers after fail_over differ")
+    moved = build_hot_index(ycsb.traces(ycsb.generate(
+        np.random.default_rng(SEED + 24), 4000, p)), top_k=400,
+        switch=cfgs[2])
+    # the migration's tids come from one module counter: restart it for
+    # each cluster, so both log the same WAL records
+    both("migrate", lambda c: (setattr(mig, "_MIG_TID",
+                                       itertools.count(1 << 40)),
+                               mig.migrate(c, moved)))
+    both("brown-out", lambda c: (c.enter_brownout(), c.exit_brownout()))
+    more = ycsb.generate(np.random.default_rng(SEED + 25), B, p)
+    both("third batch", lambda c: c.run_batch(copy.deepcopy(more)))
+    print(f"multicard (d): n=2 planes on "
+          f"{[str(pl.registers.device) for pl in _planes(gpu)]} (standby "
+          f"{[str(pl.registers.device) for pl in gpu._standby.planes]}): "
+          f"{', '.join(steps)} equal to the CPU port (registers, GIDs, "
+          f"stats, WAL heads, stores)", flush=True)
+    del gpu, cpu
+
+    # (e) the launcher repair alone: phase 4 on the last card
+    if cards > 1:
+        main_path(tk, smi, device=f"cuda:{cards - 1}")
+    print(f"multicard: phase 23 took {time.perf_counter() - t_phase:.1f} s"
+          + ("" if cards > 1 else "; (e) needs two cards"), flush=True)
+    return record
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5140,6 +5431,7 @@ def main():
                                        for r in dur["bounded"]])
     kernels += walk
     oltp_cluster(smi)
+    kernels[0]["multicard"] = multicard_path(tk, smi)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,7 +21,8 @@ compiled program); on the CPU they are its plain versions.
 
 The read tier (``execute_reads``, ``execute_scan``) answers from the same
 resident registers through the gather and scan-prune kernels, and
-``ShardedSwitchEngine`` runs N such planes on one device.
+``ShardedSwitchEngine`` runs N such planes, one on each visible card when
+it was given the default device and several exist (``plane_devices``).
 
 The register file is an int32 tensor updated IN PLACE by every engine —
 the port's replacement for the reference's buffer donation
@@ -60,6 +61,24 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device available; pass device='cpu' to "
                            "run the plain PyTorch versions")
     return dev
+
+
+def plane_devices(n: int, device=None, count: int = 1):
+    """The device of each of the ``n`` planes of a register plane given
+    ``device``, with ``count`` CUDA devices visible: the reference's rule
+    (``repro/core/engine.py:727-741``).  ``device`` None or ``"cuda"``
+    without an index, ``n > 1`` and ``count > 1``: plane i on ``cuda:(i %
+    count)``, as the reference puts plane i on ``jax.devices()[i %
+    len(devs)]``.  Otherwise every plane on ``device``: ``"cuda"`` as
+    ``cuda:0``, the reference's default device, and an explicit device
+    (``"cpu"``, ``"cuda:k"``) as given.  A CUDA device always carries its
+    index, so a plane's stream and sync reach its own card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        if n > 1 and count > 1:
+            return [torch.device("cuda", i % count) for i in range(n)]
+        dev = torch.device("cuda", 0)
+    return [dev] * n
 
 
 def init_registers(cfg: SwitchConfig, values=None, device=None):
@@ -470,10 +489,13 @@ class SwitchEngine:
 
 class ShardedSwitchEngine:
     """N-switch register plane: one ``SwitchEngine`` per shard, each with
-    its own register tensor and its own dispatch thread, all on the one
-    device the engine was given (the reference pins each plane to its own
-    JAX device when several exist; the port keeps every plane on the
-    cluster's card).
+    its own register tensor and its own dispatch thread.  Given the
+    default device (None or ``"cuda"``) with several cards visible, plane
+    i lives on ``cuda:(i % device_count)``, as the reference pins each
+    plane to its own JAX device; an explicit device (``"cpu"``,
+    ``"cuda:k"``) holds every plane (``plane_devices``).  The engine's
+    home device, ``self.device``, is plane 0's: the merged handles'
+    tensors and the ``registers`` stack live there.
 
     A batch arrives with the global-stage encoding (``stage = switch *
     n_stages + stage``; see ``packets.build_packets``).  Rows that live
@@ -498,7 +520,9 @@ class ShardedSwitchEngine:
         from dataclasses import replace
         self.cfg = cfg
         self.n = cfg.n_switches
-        self.device = resolve_device(device)
+        devices = plane_devices(self.n, resolve_device(device),
+                                torch.cuda.device_count())
+        self.device = devices[0]
         self.async_dispatch = bool(async_dispatch)
         self.next_gid = 0
         plane_cfg = replace(cfg, n_switches=1)
@@ -514,7 +538,7 @@ class ShardedSwitchEngine:
             SwitchEngine(plane_cfg,
                          registers=None if regs is None else regs[i],
                          stager_pool=stager_pool,
-                         async_dispatch=async_dispatch, device=self.device)
+                         async_dispatch=async_dispatch, device=devices[i])
             for i in range(self.n)
         ]
 
@@ -530,11 +554,13 @@ class ShardedSwitchEngine:
     @property
     def registers(self):
         """The plane's register tensor with one shard; an [N, S, R] copy
-        on the engine's device otherwise."""
+        on the engine's home device otherwise (each plane's file copied
+        there from its own card)."""
         if self.n == 1:
             return self.planes[0].registers
         self._join()
-        return torch.stack([p.registers for p in self.planes])
+        return torch.stack([p.registers.to(self.device)
+                            for p in self.planes])
 
     @registers.setter
     def registers(self, values):

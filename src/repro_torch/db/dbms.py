@@ -3,7 +3,9 @@
 PyTorch port of ``repro/db/dbms.py``: the same cluster on the port's
 ``SwitchEngine`` (``ShardedSwitchEngine`` for ``n_switches > 1``), whose
 register files live on ``Cluster(device=...)`` (``None`` -> ``cuda``,
-which must exist).
+which must exist); with the default device and several cards visible, a
+sharded switch puts plane i on ``cuda:(i % device_count)``
+(``core/engine.py::plane_devices``).
 
 Functional (value-level) execution used by tests, examples and recovery
 benchmarks; contention timing lives in repro.sim.  Pieces:
@@ -318,7 +320,10 @@ class Cluster:
         warm synchronous path).  A multi-switch config gets the sharded
         register plane; single-switch configs keep the plain engine (the
         byte-identity reference the sharded N=1 path is pinned against).
-        Every engine lives on the cluster's device."""
+        The cluster's device passes through unchanged: an explicit one
+        (``"cpu"``, ``"cuda:k"``) holds every plane, the default
+        (``"cuda"``) spreads a sharded switch's planes over the visible
+        cards (``core/engine.py::plane_devices``)."""
         cls = ShardedSwitchEngine if self.switch_cfg.n_switches > 1 \
             else SwitchEngine
         return cls(self.switch_cfg,

@@ -5,10 +5,16 @@ Each library is one ``csrc/*.cu`` file with a plain C interface (loaded
 with ``ctypes``), so ``nvcc`` compiles it in seconds; nothing includes
 PyTorch's headers.  A library is built at first use into
 ``src/repro_torch/kernels/_build/`` (git-ignored), under a name keyed by
-its source's hash and the flags, so an edited source never loads a stale
-library.  Each library has its own lock, so callers on several threads
-build several libraries at once.  There is no fallback: a failed build
-raises.
+the hash of its source, of the headers every source shares (``HEADERS``)
+and of the flags, so an edited source never loads a stale library.  Each
+library has its own lock, so callers on several threads build several
+libraries at once.  There is no fallback: a failed build raises.
+
+Every launch entry point (each exported ``*_launch``) takes the CUDA
+device index of its tensors first and the current stream of that device
+last; a ``DeviceScope`` (``csrc/device_scope.cuh``) makes that device
+current for the launch, so a kernel runs on the card that holds its
+tensors from any thread.
 """
 from __future__ import annotations
 
@@ -25,43 +31,48 @@ import torch
 
 KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS / "_build"
+# included by every source: hashed into each library's name
+HEADERS = (KERNELS / "csrc" / "device_scope.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # library name -> (source, {exported C function: argtypes}); every export
-# returns an int (a cudaError_t, or a size)
+# returns an int (a cudaError_t, or a size); every *_launch takes the
+# device index first
 LIBRARIES = {
     "switch_txn": (KERNELS / "switch_txn" / "csrc" / "switch_txn.cu", {
-        "switch_txn_launch": [_vp, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci,
-                              _vp],
+        "switch_txn_launch": [_ci, _vp, _ci, _vp, _vp, _vp, _vp, _vp, _vp,
+                              _ci, _vp],
         "switch_txn_smem_bytes": [_ci],
-        "switch_txn_smem_launch": [_vp, _ci, _ci, _vp, _vp, _vp, _vp, _ci,
-                                   _vp, _vp, _vp, _vp, _ci, _vp],
-        "result_gather_launch": [_vp, _ci, _vp, _vp, _ci, _vp],
+        "switch_txn_smem_launch": [_ci, _vp, _ci, _ci, _vp, _vp, _vp, _vp,
+                                   _ci, _vp, _vp, _vp, _vp, _ci, _vp],
+        "result_gather_launch": [_ci, _vp, _ci, _vp, _vp, _ci, _vp],
         "scan_prune_scratch_len": [_ci],
-        "scan_prune_launch": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp],
-        "scan_prune_large_launch": [_vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp,
-                                    _vp, _ci, _vp],
+        "scan_prune_launch": [_ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci, _vp,
+                              _vp],
+        "scan_prune_large_launch": [_ci, _vp, _ci, _vp, _ci, _ci, _ci, _ci,
+                                    _vp, _vp, _ci, _vp],
     }),
     "switch_engine": (KERNELS / "switch_engine" / "csrc" /
                       "switch_engine.cu", {
         "switch_walk_smem_bytes": [_ci],
-        "switch_walk_smem_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
-                                    _vp, _ci, _vp, _vp, _vp, _vp, _ci, _vp,
-                                    _vp],
+        "switch_walk_smem_launch": [_ci, _ci, _vp, _ci, _ci, _ci, _vp, _vp,
+                                    _vp, _vp, _ci, _vp, _vp, _vp, _vp, _ci,
+                                    _vp, _vp],
         "switch_walk_scratch_words": [_ci],
-        "switch_walk_prep_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
-                                    _vp, _ci, _vp, _vp, _vp, _vp, _vp, _vp],
-        "switch_walk_launch": [_ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
-                               _vp, _vp, _vp, _vp, _vp],
+        "switch_walk_prep_launch": [_ci, _ci, _vp, _ci, _ci, _ci, _vp, _vp,
+                                    _vp, _vp, _ci, _vp, _vp, _vp, _vp, _vp,
+                                    _vp],
+        "switch_walk_launch": [_ci, _ci, _vp, _ci, _ci, _ci, _vp, _vp, _vp,
+                               _vp, _vp, _vp, _vp, _vp, _vp],
     }),
     "moe_route": (KERNELS / "moe_route" / "csrc" / "moe_route.cu", {
-        "moe_route_launch": [_vp, _ci, _vp, _vp],
-        "moe_plan_launch": [_vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp,
-                            _vp],
-        "moe_plan_streams_launch": [_vp, _ci, _ci, _ci, _ci, _ci, _vp, _vp,
-                                    _vp, _vp, _vp],
+        "moe_route_launch": [_ci, _vp, _ci, _vp, _vp],
+        "moe_plan_launch": [_ci, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
+                            _vp, _vp],
+        "moe_plan_streams_launch": [_ci, _vp, _ci, _ci, _ci, _ci, _ci, _vp,
+                                    _vp, _vp, _vp, _vp],
     }),
 }
 
@@ -86,8 +97,9 @@ def library(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         source, exports = LIBRARIES[name]
-        digest = hashlib.sha256(source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        digest = hashlib.sha256(
+            source.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()
         so = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -114,8 +126,9 @@ def library(name: str) -> ctypes.CDLL:
 def raw_stream():
     """torch's getter of a device's current CUDA stream as a plain int
     (``cudaStream_t``), which builds no ``torch.cuda.Stream``: call it with
-    the device index.  Only CUDA builds of torch have it, so a launcher
-    looks it up when it first launches."""
+    the device index of the tensors, the index a launcher also passes
+    first to the C entry point.  Only CUDA builds of torch have it, so a
+    launcher looks it up when it first launches."""
     return torch._C._cuda_getCurrentRawStream
 
 

@@ -76,6 +76,8 @@
 
 #include <cub/block/block_radix_sort.cuh>
 
+#include "../../csrc/device_scope.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -187,21 +189,19 @@ __global__ void __launch_bounds__(kT) moe_plan_kernel(
   }
 }
 
-// One launch of moe_plan_kernel at tile kT x kIpt, one block per stream;
+// One launch of moe_plan_kernel at tile kT x kIpt, one block per stream,
+// on device dev (the current device, under the caller's DeviceScope);
 // raises the block's dynamic shared-memory limit once per device.
 template <int kT, int kIpt>
-cudaError_t launch_plan(const int32_t* ids, int n_streams, int n,
+cudaError_t launch_plan(int dev, const int32_t* ids, int n_streams, int n,
                         int n_experts, int capacity, int top_k, int end_bit,
                         int32_t* order, int32_t* slot, uint8_t* admit,
                         int32_t* tok, cudaStream_t s) {
   using Tile = PlanTile<kT, kIpt>;
   static std::atomic<unsigned> configured{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         moe_plan_kernel<kT, kIpt>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(Tile::kUnion + 4 * kPlanMaxE));
@@ -222,9 +222,16 @@ static_assert(PlanTile<1024, 16>::kUnion + 4 * kPlanMaxE <= 232448,
 
 extern "C" {
 
+// Every *_launch entry point launches on `device`, the CUDA device of its
+// tensors (a DeviceScope, ../../csrc/device_scope.cuh), on `stream`, a
+// stream of that device.
+
 // pos[i] = i - (first index of ids[i]'s run) for an ascending ids[n],
 // n >= 1.  Returns cudaGetLastError() after the launch.
-int moe_route_launch(const void* ids, int n, void* pos, void* stream) {
+int moe_route_launch(int device, const void* ids, int n, void* pos,
+                     void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const int blocks = (n + kThreads - 1) / kThreads;
   moe_route_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<int32_t*>(pos), n);
@@ -239,14 +246,16 @@ int moe_route_launch(const void* ids, int n, void* pos, void* stream) {
 // order and relative to its stream.  Returns cudaErrorInvalidValue
 // without launching on bad sizes (or n_experts * capacity past int32),
 // else cudaGetLastError() after the launch.
-int moe_plan_streams_launch(const void* ids, int n_streams, int n,
-                            int n_experts, int capacity, int top_k,
+int moe_plan_streams_launch(int device, const void* ids, int n_streams,
+                            int n, int n_experts, int capacity, int top_k,
                             void* order, void* slot, void* admit, void* tok,
                             void* stream) {
   if (n_streams < 1 || n_streams > 65535 || n < 1 || n > kPlanMaxN ||
       n_experts < 1 || n_experts > kPlanMaxE || capacity < 0 || top_k < 1 ||
       static_cast<long long>(n_experts) * capacity > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const int end_bit =
       kPosBits + (n_experts > 1
                       ? 32 - __builtin_clz(static_cast<unsigned>(n_experts - 1))
@@ -260,26 +269,26 @@ int moe_plan_streams_launch(const void* ids, int n_streams, int n,
   const int S = n_streams;
   cudaError_t err;
   if (n <= 256)
-    err = launch_plan<128, 2>(in, S, n, n_experts, capacity, top_k, end_bit,
-                              o, sl, a, t, s);
+    err = launch_plan<128, 2>(device, in, S, n, n_experts, capacity,
+                              top_k, end_bit, o, sl, a, t, s);
   else if (n <= 1024)
-    err = launch_plan<256, 4>(in, S, n, n_experts, capacity, top_k, end_bit,
-                              o, sl, a, t, s);
+    err = launch_plan<256, 4>(device, in, S, n, n_experts, capacity,
+                              top_k, end_bit, o, sl, a, t, s);
   else if (n <= 4096)
-    err = launch_plan<512, 8>(in, S, n, n_experts, capacity, top_k, end_bit,
-                              o, sl, a, t, s);
+    err = launch_plan<512, 8>(device, in, S, n, n_experts, capacity,
+                              top_k, end_bit, o, sl, a, t, s);
   else
-    err = launch_plan<1024, 16>(in, S, n, n_experts, capacity, top_k,
-                                end_bit, o, sl, a, t, s);
+    err = launch_plan<1024, 16>(device, in, S, n, n_experts, capacity,
+                                top_k, end_bit, o, sl, a, t, s);
   return static_cast<int>(err);
 }
 
 // The routing plan of one stream: moe_plan_streams_launch at n_streams = 1.
-int moe_plan_launch(const void* ids, int n, int n_experts, int capacity,
-                    int top_k, void* order, void* slot, void* admit,
-                    void* tok, void* stream) {
-  return moe_plan_streams_launch(ids, 1, n, n_experts, capacity, top_k,
-                                 order, slot, admit, tok, stream);
+int moe_plan_launch(int device, const void* ids, int n, int n_experts,
+                    int capacity, int top_k, void* order, void* slot,
+                    void* admit, void* tok, void* stream) {
+  return moe_plan_streams_launch(device, ids, 1, n, n_experts, capacity,
+                                 top_k, order, slot, admit, tok, stream);
 }
 
 }  // extern "C"

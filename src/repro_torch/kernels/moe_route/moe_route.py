@@ -13,7 +13,8 @@ over up to ``PLAN_MAX_E`` experts; larger plans sort with
 ``[S, n]``, the reference's ``vmap`` of ``route`` over S arbitration
 shards) is one launch of the same kernel with one block per plan.  A CUDA tensor always goes to
 a hand-written kernel in ``csrc/moe_route.cu`` (built at first use by
-``kernels/build.py``), a CPU tensor to the plain versions.  There is no
+``kernels/build.py``) on the card that holds it, a CPU tensor to the
+plain versions.  There is no
 fallback: a failed build or launch raises.  ``LAUNCHES`` counts kernel
 launches only.
 """
@@ -70,8 +71,8 @@ def moe_route_call(sorted_ids):
     if n:
         if _ROUTE is None:
             _resolve()
-        err = _ROUTE(sorted_ids.data_ptr(), n, pos.data_ptr(),
-                     _STREAM(sorted_ids.get_device()))
+        d = sorted_ids.get_device()
+        err = _ROUTE(d, sorted_ids.data_ptr(), n, pos.data_ptr(), _STREAM(d))
         if err:
             raise_on(err, "moe_route")
         LAUNCHES["moe_route"] += 1
@@ -165,14 +166,14 @@ def route_plan_call(flat_ids, n_experts: int, capacity: int, top_k: int):
     if flat_ids.numel():
         if _PLAN is None:
             _resolve()
-        stream = _STREAM(flat_ids.get_device())
+        d = flat_ids.get_device()
         ptrs = (order.data_ptr(), slot.data_ptr(), admit.data_ptr(),
-                tok.data_ptr(), stream)
+                tok.data_ptr(), _STREAM(d))
         if flat_ids.ndim == 1:
-            err = _PLAN(flat_ids.data_ptr(), n, E, C, k, *ptrs)
+            err = _PLAN(d, flat_ids.data_ptr(), n, E, C, k, *ptrs)
         else:
-            err = _PLANS(flat_ids.data_ptr(), flat_ids.shape[0], n, E, C, k,
-                         *ptrs)
+            err = _PLANS(d, flat_ids.data_ptr(), flat_ids.shape[0], n, E, C,
+                         k, *ptrs)
         if err:
             raise_on(err, "moe_plan")
         LAUNCHES["moe_plan"] += 1

@@ -120,6 +120,8 @@
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "../../csrc/device_scope.cuh"
+
 namespace {
 
 constexpr int32_t kNop = 0, kRead = 1, kWrite = 2, kAdd = 3, kCadd = 4,
@@ -778,22 +780,23 @@ __global__ void __launch_bounds__(kT) switch_walk_smem_kernel(
   if (rounds != nullptr && tid == 0) *rounds = taken;
 }
 
+// One launch of the single-CTA walk at tile kT x kIpt on device dev (the
+// current device, under the caller's DeviceScope); raises the block's
+// dynamic shared-memory limit once per device.
 template <int kMode, int kT, int kIpt>
-cudaError_t launch_smem(int32_t* regs, int S, int R, int K, const int32_t* op,
-                        const int32_t* stage, const int32_t* reg,
-                        const int32_t* val, int n, int32_t* res, uint8_t* ok,
-                        const int32_t* idx, int32_t* compact, int m,
-                        int32_t* rounds, cudaStream_t s) {
+cudaError_t launch_smem(int dev, int32_t* regs, int S, int R, int K,
+                        const int32_t* op, const int32_t* stage,
+                        const int32_t* reg, const int32_t* val, int n,
+                        int32_t* res, uint8_t* ok, const int32_t* idx,
+                        int32_t* compact, int m, int32_t* rounds,
+                        cudaStream_t s) {
   static std::atomic<unsigned> configured{0};
   constexpr int bytes = static_cast<int>(WalkTile<kMode, kT, kIpt>::kBytes);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(switch_walk_smem_kernel<kMode, kT, kIpt>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        switch_walk_smem_kernel<kMode, kT, kIpt>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     configured.fetch_or(bit);
   }
@@ -804,26 +807,29 @@ cudaError_t launch_smem(int32_t* regs, int S, int R, int K, const int32_t* op,
 }
 
 template <int kMode>
-cudaError_t launch_smem_mode(int32_t* regs, int S, int R, int K,
+cudaError_t launch_smem_mode(int dev, int32_t* regs, int S, int R, int K,
                              const int32_t* op, const int32_t* stage,
                              const int32_t* reg, const int32_t* val, int n,
                              int32_t* res, uint8_t* ok, const int32_t* idx,
                              int32_t* compact, int m, int32_t* rounds,
                              cudaStream_t s) {
   if (n <= 32)
-    return launch_smem<kMode, 32, 1>(regs, S, R, K, op, stage, reg, val, n,
-                                     res, ok, idx, compact, m, rounds, s);
+    return launch_smem<kMode, 32, 1>(dev, regs, S, R, K, op, stage, reg, val,
+                                     n, res, ok, idx, compact, m, rounds, s);
   if (n <= 256)
-    return launch_smem<kMode, 256, 1>(regs, S, R, K, op, stage, reg, val, n,
-                                      res, ok, idx, compact, m, rounds, s);
+    return launch_smem<kMode, 256, 1>(dev, regs, S, R, K, op, stage, reg,
+                                      val, n, res, ok, idx, compact, m,
+                                      rounds, s);
   if (n <= 1024)
-    return launch_smem<kMode, 256, 4>(regs, S, R, K, op, stage, reg, val, n,
-                                      res, ok, idx, compact, m, rounds, s);
+    return launch_smem<kMode, 256, 4>(dev, regs, S, R, K, op, stage, reg,
+                                      val, n, res, ok, idx, compact, m,
+                                      rounds, s);
   if (n <= 4096)
-    return launch_smem<kMode, 512, 8>(regs, S, R, K, op, stage, reg, val, n,
-                                      res, ok, idx, compact, m, rounds, s);
-  return launch_smem<kMode, 512, 16>(regs, S, R, K, op, stage, reg, val, n,
-                                     res, ok, idx, compact, m, rounds, s);
+    return launch_smem<kMode, 512, 8>(dev, regs, S, R, K, op, stage, reg,
+                                      val, n, res, ok, idx, compact, m,
+                                      rounds, s);
+  return launch_smem<kMode, 512, 16>(dev, regs, S, R, K, op, stage, reg, val,
+                                     n, res, ok, idx, compact, m, rounds, s);
 }
 
 static_assert(WalkTile<kSerial, 512, 16>::kTile == kWalkSmemMax,
@@ -1071,6 +1077,10 @@ struct Scratch {
 
 extern "C" {
 
+// Every *_launch entry point launches on `device`, the CUDA device of its
+// tensors (a DeviceScope, ../../csrc/device_scope.cuh), on `stream`, a
+// stream of that device.
+
 // The dynamic shared memory, in bytes, of switch_walk_smem_launch's block
 // for an n-instruction stream (the most any mode takes); 0 when n is
 // outside 1..kWalkSmemMax.
@@ -1091,14 +1101,16 @@ int switch_walk_smem_bytes(int n) {
 // (negative: that many serial rounds, then the one-thread walk).  Returns
 // cudaErrorInvalidValue without launching on bad sizes, else
 // cudaGetLastError() after the launch.
-int switch_walk_smem_launch(int mode, void* regs, int S, int R, int K,
-                            const void* op, const void* stage,
+int switch_walk_smem_launch(int device, int mode, void* regs, int S, int R,
+                            int K, const void* op, const void* stage,
                             const void* reg, const void* val, int n,
                             void* res, void* ok, const void* idx,
                             void* compact, int m, void* rounds,
                             void* stream) {
   if (!sizes_ok(mode, S, R, K, n) || n > kWalkSmemMax || m < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   auto* rg = static_cast<int32_t*>(regs);
   auto* o = static_cast<const int32_t*>(op);
   auto* st = static_cast<const int32_t*>(stage);
@@ -1112,14 +1124,14 @@ int switch_walk_smem_launch(int mode, void* regs, int S, int R, int K,
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (mode == kSerial)
-    err = launch_smem_mode<kSerial>(rg, S, R, K, o, st, r, v, n, out, okb,
-                                    ix, cm, m, rd, s);
+    err = launch_smem_mode<kSerial>(device, rg, S, R, K, o, st, r, v, n, out,
+                                    okb, ix, cm, m, rd, s);
   else if (mode == kStaged)
-    err = launch_smem_mode<kStaged>(rg, S, R, K, o, st, r, v, n, out, okb,
-                                    ix, cm, m, rd, s);
+    err = launch_smem_mode<kStaged>(device, rg, S, R, K, o, st, r, v, n, out,
+                                    okb, ix, cm, m, rd, s);
   else
-    err = launch_smem_mode<kAffine>(rg, S, R, K, o, st, r, v, n, out, okb,
-                                    ix, cm, m, rd, s);
+    err = launch_smem_mode<kAffine>(device, rg, S, R, K, o, st, r, v, n, out,
+                                    okb, ix, cm, m, rd, s);
   return static_cast<int>(err);
 }
 
@@ -1127,13 +1139,15 @@ int switch_walk_smem_launch(int mode, void* regs, int S, int R, int K,
 // tensor; every key is below 2^63, so the signed sort is the unsigned
 // one), cur[n] seeds, opf[n] opcodes and flags, vq[n] operands, and res[n]
 // zeroed.  Returns cudaGetLastError() after the launch.
-int switch_walk_prep_launch(int mode, const void* regs, int S, int R, int K,
-                            const void* op, const void* stage,
+int switch_walk_prep_launch(int device, int mode, const void* regs, int S,
+                            int R, int K, const void* op, const void* stage,
                             const void* reg, const void* val, int n,
                             void* key, void* cur, void* opf, void* vq,
                             void* res, void* stream) {
   if (!sizes_ok(mode, S, R, K, n))
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   switch_walk_prep_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       mode, static_cast<const int32_t*>(regs), S, R, K,
@@ -1158,12 +1172,14 @@ int switch_walk_scratch_words(int n) {
 // once) behind a gather of the ADDP addends, then the one-thread walk and
 // its write-back, all exiting at once when the rounds converged; writes
 // res, ok and the registers.  Returns the first launch error.
-int switch_walk_launch(int mode, void* regs, int S, int R, int n,
+int switch_walk_launch(int device, int mode, void* regs, int S, int R, int n,
                        const void* skey, const void* perm, const void* opf,
                        const void* vq, void* cur, void* res, void* ok,
                        void* scratch, void* stream) {
   if (!sizes_ok(mode, S, R, 1, n))
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   auto s = static_cast<cudaStream_t>(stream);
   const int blocks = (n + kThreads - 1) / kThreads;
   const Scratch lay(n);

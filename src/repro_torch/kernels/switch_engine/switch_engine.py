@@ -16,7 +16,8 @@ longer stream takes the large route (a prep kernel, a stable
 multi-block scans or chain walks, then ``result_gather``), with no host
 sync on either route.  A CUDA tensor always goes to the kernels (built at
 first use by ``kernels/build.py``), a CPU tensor to the plain versions
-below.  There is no fallback: a failed build or launch raises.
+below; each launch runs on the card that holds the tensors.  There is no
+fallback: a failed build or launch raises.
 ``LAUNCHES`` counts kernel launches only, by route and mode:
 ``switch_walk_smem.<mode>`` the single-CTA route, ``switch_walk.<mode>``
 one per large-route dispatch.
@@ -358,7 +359,7 @@ def switch_walk_gather_call(mode, registers, op, stage, reg, val, idx=None,
     stream = _STREAM(d)
     if n <= WALK_SMEM_MAX:
         compact = None if idx is None else torch.empty_like(idx)
-        err = _SMEM(mid, registers.data_ptr(), S, R, K, op.data_ptr(),
+        err = _SMEM(d, mid, registers.data_ptr(), S, R, K, op.data_ptr(),
                     stage.data_ptr(), reg.data_ptr(), val.data_ptr(), n,
                     res.data_ptr(), ok.data_ptr(),
                     idx.data_ptr() if m else None,
@@ -376,14 +377,14 @@ def switch_walk_gather_call(mode, registers, op, stage, reg, val, idx=None,
     cur = torch.empty(n, dtype=_I32, device=dev)
     vq = torch.empty(n, dtype=_I32, device=dev)
     opf = torch.empty(n, dtype=torch.uint8, device=dev)
-    err = _PREP(mid, registers.data_ptr(), S, R, K, op.data_ptr(),
+    err = _PREP(d, mid, registers.data_ptr(), S, R, K, op.data_ptr(),
                 stage.data_ptr(), reg.data_ptr(), val.data_ptr(), n,
                 key.data_ptr(), cur.data_ptr(), opf.data_ptr(),
                 vq.data_ptr(), res.data_ptr(), stream)
     raise_on(err, "switch_walk_prep")
     skey, perm = torch.sort(key, stable=True)
     scratch = torch.empty(_SCRATCH(n), dtype=_I32, device=dev)
-    err = _WALK(mid, registers.data_ptr(), S, R, n, skey.data_ptr(),
+    err = _WALK(d, mid, registers.data_ptr(), S, R, n, skey.data_ptr(),
                 perm.data_ptr(), opf.data_ptr(), vq.data_ptr(),
                 cur.data_ptr(), res.data_ptr(), ok.data_ptr(),
                 scratch.data_ptr(), stream)

@@ -106,6 +106,8 @@
 #include <cub/block/block_radix_sort.cuh>
 #include <cub/block/block_scan.cuh>
 
+#include "../../csrc/device_scope.cuh"
+
 namespace {
 
 constexpr int32_t kNop = 0, kRead = 1, kWrite = 2, kAdd = 3, kCadd = 4;
@@ -293,25 +295,23 @@ __global__ void __launch_bounds__(kT) switch_txn_smem_kernel(
   }
 }
 
-// One launch of the single-CTA kernel at tile kT x kIpt; raises the
-// block's dynamic shared-memory limit once per device.
+// One launch of the single-CTA kernel at tile kT x kIpt on device dev
+// (the current device, under the caller's DeviceScope); raises the block's
+// dynamic shared-memory limit once per device.
 template <int kT, int kIpt>
-cudaError_t launch_smem(int32_t* regs, int n_slots, int R, const int32_t* op,
-                        const int32_t* stage, const int32_t* reg,
-                        const int32_t* val, int n, int end_bit, int vec_in,
-                        int32_t* res, uint8_t* ok, int vec_out,
-                        const int32_t* idx, int32_t* compact, int m,
-                        cudaStream_t s) {
+cudaError_t launch_smem(int dev, int32_t* regs, int n_slots, int R,
+                        const int32_t* op, const int32_t* stage,
+                        const int32_t* reg, const int32_t* val, int n,
+                        int end_bit, int vec_in, int32_t* res, uint8_t* ok,
+                        int vec_out, const int32_t* idx, int32_t* compact,
+                        int m, cudaStream_t s) {
   static std::atomic<unsigned> configured{0};
   constexpr int bytes = static_cast<int>(SmemTile<kT, kIpt>::kBytes);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
   const unsigned bit = 1u << (dev & 31);
   if (!(configured.load() & bit)) {
-    err = cudaFuncSetAttribute(switch_txn_smem_kernel<kT, kIpt>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        switch_txn_smem_kernel<kT, kIpt>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     configured.fetch_or(bit);
   }
@@ -593,14 +593,20 @@ __global__ void __launch_bounds__(kLargeT) scan_block_write_kernel(
 
 extern "C" {
 
+// Every *_launch entry point launches on `device`, the CUDA device of its
+// tensors (a DeviceScope, ../../csrc/device_scope.cuh), on `stream`, a
+// stream of that device.
+
 // Applies n instructions to regs[n_slots] in place.  sorted_slot holds the
 // stream's clamped slots (n_slots for a NOP) in stable-sorted order and
 // perm the stream position of each sorted entry.  Returns
 // cudaGetLastError() after the launch.
-int switch_txn_launch(void* regs, int n_slots, const void* op,
+int switch_txn_launch(int device, void* regs, int n_slots, const void* op,
                       const void* val, const void* sorted_slot,
                       const void* perm, void* res, void* ok, int n,
                       void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const int blocks = (n + kThreads - 1) / kThreads;
   switch_txn_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
@@ -628,13 +634,15 @@ int switch_txn_smem_bytes(int n) {
 // n - 1)] for j < m (m may be 0, idx and compact then unused).  Returns
 // cudaErrorInvalidValue without launching on bad sizes, else
 // cudaGetLastError() after the launch.
-int switch_txn_smem_launch(void* regs, int n_slots, int R, const void* op,
-                           const void* stage, const void* reg,
-                           const void* val, int n, void* res, void* ok,
-                           const void* idx, void* compact, int m,
-                           void* stream) {
+int switch_txn_smem_launch(int device, void* regs, int n_slots, int R,
+                           const void* op, const void* stage,
+                           const void* reg, const void* val, int n,
+                           void* res, void* ok, const void* idx,
+                           void* compact, int m, void* stream) {
   if (n < 1 || n > kSmemMaxN || n_slots < 1 || m < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const auto a16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -653,24 +661,30 @@ int switch_txn_smem_launch(void* regs, int n_slots, int R, const void* op,
   int32_t* cp = static_cast<int32_t*>(compact);
   cudaError_t err;
   if (n <= 256)
-    err = launch_smem<256, 1>(r, n_slots, R, o, st, rg, v, n, end_bit, vec_in,
-                              out, okp, vec_out, ix, cp, m, s);
+    err = launch_smem<256, 1>(device, r, n_slots, R, o, st, rg, v, n,
+                              end_bit, vec_in, out, okp, vec_out, ix, cp,
+                              m, s);
   else if (n <= 1024)
-    err = launch_smem<256, 4>(r, n_slots, R, o, st, rg, v, n, end_bit, vec_in,
-                              out, okp, vec_out, ix, cp, m, s);
+    err = launch_smem<256, 4>(device, r, n_slots, R, o, st, rg, v, n,
+                              end_bit, vec_in, out, okp, vec_out, ix, cp,
+                              m, s);
   else if (n <= 4096)
-    err = launch_smem<512, 8>(r, n_slots, R, o, st, rg, v, n, end_bit, vec_in,
-                              out, okp, vec_out, ix, cp, m, s);
+    err = launch_smem<512, 8>(device, r, n_slots, R, o, st, rg, v, n,
+                              end_bit, vec_in, out, okp, vec_out, ix, cp,
+                              m, s);
   else
-    err = launch_smem<512, 16>(r, n_slots, R, o, st, rg, v, n, end_bit,
-                               vec_in, out, okp, vec_out, ix, cp, m, s);
+    err = launch_smem<512, 16>(device, r, n_slots, R, o, st, rg, v, n,
+                               end_bit, vec_in, out, okp, vec_out, ix, cp, m,
+                               s);
   return static_cast<int>(err);
 }
 
 // out[i] = src[clamp(idx[i], 0, n_src - 1)] for i < m.  Returns
 // cudaGetLastError() after the launch.
-int result_gather_launch(const void* src, int n_src, const void* idx,
-                         void* out, int m, void* stream) {
+int result_gather_launch(int device, const void* src, int n_src,
+                         const void* idx, void* out, int m, void* stream) {
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const int blocks = (m + kThreads - 1) / kThreads;
   result_gather_kernel<<<blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
@@ -693,10 +707,13 @@ int scan_prune_scratch_len(int m) {
 // out[2 cap + 4] = vals[cap] | pos[cap] | agg[4], every word of it.
 // Returns cudaErrorInvalidValue without launching on bad sizes, else
 // cudaGetLastError() after the launch.
-int scan_prune_launch(const void* src, int n_src, const void* idx, int m,
-                      int lo, int hi, int cap, void* out, void* stream) {
+int scan_prune_launch(int device, const void* src, int n_src,
+                      const void* idx, int m, int lo, int hi, int cap,
+                      void* out, void* stream) {
   if (m < 0 || m > kScanSmemMaxM || cap < 0 || (idx != nullptr && n_src < 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const int vec =
       reinterpret_cast<uintptr_t>(idx != nullptr ? idx : src) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -722,12 +739,15 @@ int scan_prune_launch(const void* src, int n_src, const void* idx, int m,
 // 4,096; scratch holds scratch_len int32, at least
 // scan_prune_scratch_len(m) (else cudaErrorInvalidValue, nothing
 // launched).  Returns the first non-zero cudaGetLastError() of the two.
-int scan_prune_large_launch(const void* src, int n_src, const void* idx,
-                            int m, int lo, int hi, int cap, void* out,
-                            void* scratch, int scratch_len, void* stream) {
+int scan_prune_large_launch(int device, const void* src, int n_src,
+                            const void* idx, int m, int lo, int hi, int cap,
+                            void* out, void* scratch, int scratch_len,
+                            void* stream) {
   if (m <= kScanSmemMaxM || cap < 0 || (idx != nullptr && n_src < 1) ||
       scratch_len < scan_prune_scratch_len(m))
     return static_cast<int>(cudaErrorInvalidValue);
+  const DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const int vec =
       reinterpret_cast<uintptr_t>(idx != nullptr ? idx : src) % 16 == 0;
   const int tiles = (m + kLargeTile - 1) / kLargeTile;

@@ -14,11 +14,11 @@ result gather into it: one launch per scan of up to ``SCAN_SMEM_MAX``
 positions, writing one packed buffer.  Each launcher takes int32,
 contiguous, 1-D tensors: a CUDA tensor always goes to a hand-written
 kernel in ``csrc/switch_txn.cu`` (built at first use by
-``kernels/build.py``), a CPU tensor to the plain versions below.  There
-is no fallback: a failed build or launch raises.  ``LAUNCHES`` counts
-kernel launches only: ``switch_txn_smem`` the single-CTA path,
-``switch_txn`` the large-N path; ``scan_prune`` every scan,
-``scan_prune_large`` those of the two-launch path.
+``kernels/build.py``) on the card that holds it, a CPU tensor to the
+plain versions below.  There is no fallback: a failed build or launch
+raises.  ``LAUNCHES`` counts kernel launches only: ``switch_txn_smem``
+the single-CTA path, ``switch_txn`` the large-N path; ``scan_prune``
+every scan, ``scan_prune_large`` those of the two-launch path.
 
 The register file is updated IN PLACE — the port's stand-in for JAX's
 buffer donation — so callers copy it where they need an old state.
@@ -45,8 +45,10 @@ LAUNCHES = {"switch_txn_smem": 0, "switch_txn": 0, "result_gather": 0,
             "scan_prune": 0, "scan_prune_large": 0}
 
 _I32 = torch.int32
-# C entry points, resolved at the first CUDA launch
-_SMEM = _GATHER = _SCAN = _SCAN_LARGE = _SCAN_SCRATCH = _STREAM = None
+# C entry points, resolved at the first CUDA launch; each launch passes
+# its tensors' device index first and that device's current stream last
+_LARGE = _SMEM = _GATHER = _SCAN = _SCAN_LARGE = _SCAN_SCRATCH = None
+_STREAM = None
 
 AGG_MIN_EMPTY = 2147483647        # int32 identities the aggregate lanes
 AGG_MAX_EMPTY = -2147483648       # start from (empty-scan sentinels)
@@ -113,17 +115,16 @@ def switch_txn_call(registers_flat, op, g, val):
     ok = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return registers_flat, res, ok
-    lib = library("switch_txn")
+    if _LARGE is None:
+        _resolve()
     # the permutation the kernel walks: stream positions in stable slot
     # order (the TPU kernel needs none — its grid walks the stream in order)
     sorted_slot, perm = torch.sort(_sort_key(registers_flat, op, g),
                                    stable=True)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.switch_txn_launch(registers_flat.data_ptr(),
-                                registers_flat.shape[0], op.data_ptr(),
-                                val.data_ptr(), sorted_slot.data_ptr(),
-                                perm.data_ptr(), res.data_ptr(),
-                                ok.data_ptr(), n, stream)
+    err = _LARGE(dev.index, registers_flat.data_ptr(),
+                 registers_flat.shape[0], op.data_ptr(), val.data_ptr(),
+                 sorted_slot.data_ptr(), perm.data_ptr(), res.data_ptr(),
+                 ok.data_ptr(), n, _STREAM(dev.index))
     raise_on(err, "switch_txn")
     LAUNCHES["switch_txn"] += 1
     return registers_flat, res, ok
@@ -139,8 +140,9 @@ def result_gather_plain(src, idx):
 def _resolve():
     """The C entry points and the raw stream getter, resolved once (after
     the build), so later launches take no lock."""
-    global _SMEM, _GATHER, _SCAN, _SCAN_LARGE, _SCAN_SCRATCH, _STREAM
+    global _LARGE, _SMEM, _GATHER, _SCAN, _SCAN_LARGE, _SCAN_SCRATCH, _STREAM
     lib = library("switch_txn")
+    _LARGE = lib.switch_txn_launch
     _SMEM, _GATHER = lib.switch_txn_smem_launch, lib.result_gather_launch
     _SCAN, _SCAN_LARGE = lib.scan_prune_launch, lib.scan_prune_large_launch
     _SCAN_SCRATCH = lib.scan_prune_scratch_len
@@ -179,8 +181,8 @@ def result_gather_call(src, idx):
     if m:
         if _GATHER is None:
             _resolve()
-        err = _GATHER(src.data_ptr(), n, idx.data_ptr(), out.data_ptr(), m,
-                      _STREAM(d))
+        err = _GATHER(d, src.data_ptr(), n, idx.data_ptr(), out.data_ptr(),
+                      m, _STREAM(d))
         if err:
             raise_on(err, "result_gather")
         LAUNCHES["result_gather"] += 1
@@ -247,11 +249,12 @@ def switch_txn_gather_call(registers_flat, op, stage, reg, val, R: int,
         return registers_flat, res, ok, compact
     if _SMEM is None:
         _resolve()
-    err = _SMEM(registers_flat.data_ptr(), n_slots, int(R), op.data_ptr(),
+    d = dev.index
+    err = _SMEM(d, registers_flat.data_ptr(), n_slots, int(R), op.data_ptr(),
                 stage.data_ptr(), reg.data_ptr(), val.data_ptr(), n,
                 res.data_ptr(), ok.data_ptr(),
                 idx.data_ptr() if m else None,
-                compact.data_ptr() if m else None, m, _STREAM(dev.index))
+                compact.data_ptr() if m else None, m, _STREAM(d))
     if err:
         raise_on(err, "switch_txn_smem")
     LAUNCHES["switch_txn_smem"] += 1
@@ -313,10 +316,11 @@ def _scan_large(src, idx, lo, hi, cap, m):
         _resolve()
     scratch = src.new_empty(_SCAN_SCRATCH(m))
     out = src.new_empty(2 * cap + 4)
-    err = _SCAN_LARGE(src.data_ptr(), src.shape[0],
+    d = src.get_device()
+    err = _SCAN_LARGE(d, src.data_ptr(), src.shape[0],
                       None if idx is None else idx.data_ptr(), m, lo, hi,
                       cap, out.data_ptr(), scratch.data_ptr(),
-                      scratch.shape[0], _STREAM(src.get_device()))
+                      scratch.shape[0], _STREAM(d))
     if err:
         raise_on(err, "scan_prune")
     LAUNCHES["scan_prune"] += 1
@@ -376,8 +380,9 @@ def scan_prune_gather_packed(src, idx, lo, hi, cap):
     out = src.new_empty(2 * cap + 4)
     if _SCAN is None:
         _resolve()
-    err = _SCAN(src.data_ptr(), n, None if idx is None else idx.data_ptr(),
-                m, lo, hi, cap, out.data_ptr(), _STREAM(d))
+    err = _SCAN(d, src.data_ptr(), n,
+                None if idx is None else idx.data_ptr(), m, lo, hi, cap,
+                out.data_ptr(), _STREAM(d))
     if err:
         raise_on(err, "scan_prune")
     LAUNCHES["scan_prune"] += 1

@@ -5,9 +5,18 @@ port's ``SwitchEngine``, whole clusters across shard counts, recovery at
 N = 2, a migration crossing an undrained batch at N = 2 with the port's
 ``EpochController``, and sharded state carried over by ``convert_state``.
 Everything is int32 or exact host state, so every comparison is exact
-(the workloads and placements of tests/test_multiswitch.py)."""
+(the workloads and placements of tests/test_multiswitch.py).  Plane
+placement: ``plane_devices`` against the JAX package's one-plane-a-device
+rule, read from a process with four forced host devices; the engine and
+the cluster place their planes by it (fake CUDA tensors stand in for the
+cards here)."""
 import copy
 import itertools
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +46,7 @@ from repro_torch.db.migrate import EpochController  # noqa: E402
 from repro_torch.db.txn import Txn as TTxn  # noqa: E402
 from test_multiswitch import (_mixed_txns, _round_robin_placement,  # noqa: E402,E501
                               _safe_txns, _workload)
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 S, R, M = 4, 32, 8
 N_NODES = 2
@@ -330,3 +340,112 @@ def test_converted_sharded_state_continues_like_jax():
             [(r.kind, r.tid, r.payload) for r in tn.wal]
     for k in hot:
         assert jc.read(k) == tc.read(k)
+
+
+# ------------------------------------------------------ plane placement --
+
+PLANES = (1, 2, 3, 4, 8)
+CARDS = (1, 2, 3, 4)
+
+# the JAX package's placement: ShardedSwitchEngine reads jax.devices() when
+# it builds its planes, so each count of cards shows it the first `count`
+# of four forced host devices; prints {"n,count": [device id a plane]}
+_JAX_PLACEMENT = f"""
+import json
+import jax
+from repro.core import engine
+from repro.core.packets import SwitchConfig
+real = jax.devices()
+assert len(real) == 4, real
+out = {{}}
+for count in {CARDS}:
+    jax.devices = lambda *a, _d=tuple(real[:count]), **k: list(_d)
+    for n in {PLANES}:
+        e = engine.ShardedSwitchEngine(SwitchConfig(
+            n_stages=2, regs_per_stage=4, max_instrs=2, n_switches=n))
+        out[f"{{n}},{{count}}"] = [next(iter(p.registers.devices())).id
+                                   for p in e.planes]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_placement():
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _JAX_PLACEMENT], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("count", CARDS)
+@pytest.mark.parametrize("n", PLANES)
+def test_plane_devices_match_jax_placement(jax_placement, n, count):
+    """The default device (None or "cuda") with ``count`` cards: plane i
+    on the card the JAX package gives it, device i % count when n > 1 and
+    count > 1, else its default device 0; every device has its index."""
+    want = jax_placement[f"{n},{count}"]
+    for device in (None, "cuda", torch.device("cuda")):
+        got = teng.plane_devices(n, device, count)
+        assert all(d.type == "cuda" and d.index is not None for d in got)
+        assert [d.index for d in got] == want
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda:0", "cuda:1",
+                                    torch.device("cuda", 3)])
+def test_explicit_device_holds_every_plane(device):
+    """An explicit device keeps every plane on it, at any shard and card
+    count; on the CPU the sharded engine puts every plane there."""
+    for n, count in itertools.product(PLANES, CARDS):
+        assert teng.plane_devices(n, device, count) == \
+            [torch.device(device)] * n
+    if device == "cpu":
+        e = teng.ShardedSwitchEngine(_cfgs(4)[1], device=device)
+        assert [p.registers.device for p in e.planes] == \
+            [torch.device("cpu")] * 4
+        assert e.device == torch.device("cpu")
+
+
+@pytest.fixture
+def three_cards(monkeypatch):
+    """Three visible cards, as fake CUDA tensors: no storage, metadata
+    only, so engines and clusters can be built but not run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        yield
+
+
+def _plane_cards(engine):
+    return [str(p.registers.device) for p in engine.planes]
+
+
+def test_sharded_engine_and_cluster_place_planes_by_rule(three_cards):
+    """With three cards: the default device spreads n = 4 planes as
+    cuda:0, 1, 2, 0 (the JAX rule), for the engine, a cluster, its warm
+    standby and a recovered switch; the home device is plane 0's and the
+    register stack lives there; an explicit card holds every plane; one
+    shard stays whole on card 0."""
+    _, tcfg = _cfgs(4)
+    spread = ["cuda:0", "cuda:1", "cuda:2", "cuda:0"]
+    e = teng.ShardedSwitchEngine(tcfg)
+    assert _plane_cards(e) == spread and e.device == torch.device("cuda", 0)
+    assert e.registers.shape == (4, S, R)
+    assert e.registers.device == torch.device("cuda", 0)
+    assert _plane_cards(teng.ShardedSwitchEngine(tcfg, device="cuda")) == \
+        spread
+    assert _plane_cards(teng.ShardedSwitchEngine(tcfg, device="cuda:2")) == \
+        ["cuda:2"] * 4
+    assert _plane_cards(teng.ShardedSwitchEngine(_cfgs(1)[1])) == ["cuda:0"]
+    hi = HotIndex(Placement(slot={}))
+    c = TCluster(N_NODES, tcfg, hi, use_switch=True, standby=True)
+    assert isinstance(c.switch, teng.ShardedSwitchEngine)
+    assert _plane_cards(c.switch) == spread
+    assert _plane_cards(c._standby) == spread
+    assert _plane_cards(c._fresh_engine()) == spread
+    pinned = TCluster(N_NODES, tcfg, hi, use_switch=True, device="cuda:0")
+    assert _plane_cards(pinned.switch) == ["cuda:0"] * 4
