@@ -199,7 +199,22 @@ Phases (each one exits non-zero on failure):
               port; (e) with two cards or more, phase 4 on the last card
               (every launcher makes its tensors' card current); the
               cards, the placement, dispatches per plane and run_batch
-              seconds at n = 1, 2, 4.
+              seconds at n = 1, 2, 4;
+24. stream async — async hot dispatch on CUDA streams and events (an
+              async engine on the card dispatches on the caller's thread
+              under a stream of its own, pinned staging guarded by
+              events): (a) phase 4's YCSB-A and phase 9's SmallBank in
+              ``pallas`` and ``auto`` mode at max_inflight 2 and 4, each
+              equal to a sync card cluster and an async CPU port
+              cluster, no dispatch thread started; (b) a WRITE-only load
+              burst three times the staging ring deep behind a spin, no
+              drain, registers equal to the CPU port; (c) a deferred
+              ``execute_batch`` behind a spin returns before its kernel
+              ran: its host µs, then its results; (d) planes sharing a
+              card at n = 2 and 4 on distinct streams; (e) sync against
+              async ``run_batch`` totals at n = 1 and 4 (phase 23 (b)'s
+              setup), in turns.  Phases 8, 20 and 23 run their async
+              clusters on streams too.
 
 Prints a ``{"kernels": [...]}`` JSON line, the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Imports nothing
@@ -207,6 +222,7 @@ of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import itertools
@@ -5175,7 +5191,7 @@ def multicard_path(tk, smi):
     one-plane-a-device rule); on one card every plane is on cuda:0.
     (a) at n_switches 2 and 4, each plane's registers on its card; (b) 2 x
     256 YCSB-A txns at n = 1, 2, 4 (and n = 4 with async dispatch, a
-    thread a plane): results, GIDs, per-key reads and WAL streams equal
+    stream a plane): results, GIDs, per-key reads and WAL streams equal
     to n = 1, and every plane's registers, stats and WAL heads equal to a
     CPU port cluster of the same n; (c) a ``_mixed_txns`` stream of cross-
     shard rows at n = 2 and 4 in ``pallas`` mode (READ, WRITE, ADD, CADD)
@@ -5344,6 +5360,338 @@ def multicard_path(tk, smi):
     return record
 
 
+
+# --------------------------------------------------------------- phase 24 --
+
+SPIN_CYCLES = 20_000_000        # torch.cuda._sleep: ~10 ms on an H100
+
+
+def _dispatch_threads():
+    """The dispatch threads alive (the CPU port's async engines')."""
+    import threading
+    return {t.ident for t in threading.enumerate()
+            if t.name.startswith("switch-dispatch")}
+
+
+def _wal_by_tid(c):
+    """Each node's WAL records, its switch_result records set apart and
+    ordered by tid: an async cluster logs a hot group's results at its
+    drain, which may come later in the log than a sync cluster's;
+    nothing else moves."""
+    return [([(e.kind, e.tid, e.payload) for e in n.wal
+              if e.kind != "switch_result"],
+             sorted(((e.tid, e.payload) for e in n.wal
+                     if e.kind == "switch_result"), key=lambda r: r[0]))
+            for n in c.nodes]
+
+
+def _same_as_sync(a, s_, what):
+    check(np.array_equal(a.switch.read_all(), s_.switch.read_all()),
+          f"{what}: registers differ from the sync card cluster")
+    check(a.switch.next_gid == s_.switch.next_gid,
+          f"{what}: next_gid differs from the sync card cluster")
+    check(dict(a.stats) == dict(s_.stats),
+          f"{what}: stats differ from the sync card cluster")
+    check(_wal_by_tid(a) == _wal_by_tid(s_),
+          f"{what}: WAL records differ from the sync card cluster")
+
+
+def _drained(c, batches):
+    """``batches`` through ``run_batch``, then one drain; the results."""
+    outs = [c.run_batch(b) for b in batches]
+    c.drain()
+    return [r for out in outs for r in out]
+
+
+def _dispatch_pieces(cfg, pkts, meta, reps=21):
+    """Median host µs of each piece of one ``pallas`` dispatch of
+    ``pkts``, on a throwaway async card engine (its stream queue) and a
+    sync one, each piece alone with the card idle before it: staging,
+    entering the stream, the H2D copy, the launch, the D2H copies, the
+    done event; the sync engine's pageable H2D, launch and drain reads.
+    For the record: where the host time of a dispatch goes."""
+    from repro_torch.core.engine import SwitchEngine, _bucket, _run_fused
+    B, K = pkts["op"].shape
+    idx = meta["gather_idx"]
+    M, Bp = len(idx), _bucket(B)
+    Mp = min(_bucket(max(M, 1)), Bp * K)
+    out = {}
+
+    def timed(name, fn):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        out[name] = statistics.median(ts)
+
+    for kind in ("async", "sync"):
+        eng = SwitchEngine(cfg, async_dispatch=kind == "async",
+                           device="cuda")
+        q = eng._queue
+        scope = (lambda: q._scope) if kind == "async" \
+            else contextlib.nullcontext
+        buf = q.stager.stage(pkts, idx, Bp, Mp)
+        with scope():
+            fused = q.put(buf)
+            _, _, ok, compact = _run_fused("pallas", eng.registers, fused, Mp)
+        timed(f"{kind} execute_batch", lambda: eng.execute_batch(
+            pkts, meta, mode="pallas", defer=True))
+        timed(f"{kind} stage", lambda: q.stager.stage(pkts, idx, Bp, Mp))
+
+        def put():
+            with scope():
+                q.put(buf)
+
+        def launch():
+            with scope():
+                _run_fused("pallas", eng.registers, fused, Mp)
+        timed(f"{kind} put (H2D)", put)
+        timed(f"{kind} launch", launch)
+        if kind == "async":
+            def enter():
+                with scope():
+                    pass
+
+            def enter_torch():
+                with torch.cuda.stream(q.stream):
+                    pass
+
+            def host():
+                with scope():
+                    q.host(ok[:B], compact[:M])
+
+            def event():
+                torch.cuda.Event().record(q.stream)
+            timed("async stream scope", enter)
+            timed("(torch.cuda.stream scope)", enter_torch)
+            timed("async 2 D2H into one pinned buffer", host)
+            timed("async done event", event)
+        else:
+            timed("sync drain reads (.cpu() x 2)",
+                  lambda: (compact[:M].cpu(), ok[:B].cpu()))
+    return out
+
+
+def stream_async(tk, smi):
+    """Phase 24: async hot dispatch on CUDA streams and events.  An async
+    engine on the card runs every dispatch on the caller's thread under
+    a stream of its own (``core/dispatch.py::StreamQueue``), with pinned
+    staging slots each guarded by the event recorded after its copy.
+    (a) phase 4's YCSB-A and phase 9's SmallBank in ``pallas`` and
+    ``auto`` mode, ``async_hot`` at max_inflight 2 and 4, each equal to a
+    sync card cluster (results, registers, GIDs, stats, WAL records) and
+    to an async CPU port cluster (the same and WAL heads), no dispatch
+    thread started; (b) a WRITE-only load burst three times the stager's
+    pool deep, queued behind a spin kernel on the plane's stream, no
+    drain, then ``read_all`` equal to the CPU port; (c) a deferred
+    ``execute_batch`` behind a spin returns before its kernel ran (its
+    done event's ``query()`` False): its host µs, then its results
+    against a CPU engine; (d) planes at n_switches 2 and 4 on one card
+    each on a stream of its own; (e) phase 23 (b)'s 2 x 256 YCSB-A
+    ``run_batch`` totals, sync against async, at n = 1 and 4, in turns,
+    a first and a second pass on each cluster.
+    Returns (e)'s totals."""
+    from repro_torch.core.dispatch import StreamQueue
+    from repro_torch.core.engine import ShardedSwitchEngine, SwitchEngine
+    from repro_torch.core.hotset import build_hot_index
+    from repro_torch.core.packets import ADDP, SwitchConfig, build_packets
+    from repro_torch.db.dbms import Cluster
+    from repro_torch.workloads import smallbank, ycsb
+
+    t_phase = time.perf_counter()
+    cfg, yhi, ytxns, _ = _ycsb_setup()
+    sp = smallbank.SmallBankParams()            # phase 9's
+    sample = smallbank.generate(np.random.default_rng(SEED), 6000, sp)
+    shi = build_hot_index(smallbank.traces(sample),
+                          top_k=sp.hot_per_node * sp.n_nodes * 2, switch=cfg)
+    stxns = smallbank.generate(np.random.default_rng(SEED + 1), 4 * B, sp)
+    sloads = [(k, 100) for k in smallbank.hot_keys(sp)]
+    no_addp = [t for t in stxns if all(o != ADDP for o, _, _ in t.ops)]
+    cases = [("YCSB-A", "pallas", yhi, ytxns, []),
+             ("YCSB-A", "auto", yhi, ytxns, []),
+             ("SmallBank", "pallas", shi, no_addp, sloads),
+             ("SmallBank", "auto", shi, stxns, sloads)]
+
+    def make(hi, mode, loads, device, **kw):
+        c = Cluster(8, cfg, hi, switch_mode=mode, device=device, **kw)
+        for k, v in loads:
+            c.load(k, v)
+        c.snapshot_offload()
+        return c
+
+    def batches(txns):
+        return [copy.deepcopy(txns[i:i + B]) for i in range(0, len(txns), B)]
+
+    # (a)
+    rows = []
+    for name, mode, hi, txns, loads in cases:
+        want = _drained(make(hi, mode, loads, "cuda"), batches(txns))
+        sync = make(hi, mode, loads, "cuda")
+        check(_drained(sync, batches(txns)) == want,
+              f"stream async (a) {name} {mode}: two sync runs differ")
+        for inflight in (2, 4):
+            what = f"stream async (a) {name} {mode} max_inflight={inflight}"
+            before = _dispatch_threads()
+            gpu = make(hi, mode, loads, "cuda", async_hot=True,
+                       max_inflight=inflight)
+            check(isinstance(gpu.switch._queue, StreamQueue),
+                  f"{what}: the engine is not on the stream queue")
+            _reset(tk)
+            out = _drained(gpu, batches(txns))
+            launches = _nonzero(_counts(tk))
+            check(_dispatch_threads() <= before,
+                  f"{what}: a switch-dispatch thread started on the card")
+            cpu = make(hi, mode, loads, "cpu", async_hot=True,
+                       max_inflight=inflight)
+            out_cpu = _drained(cpu, batches(txns))
+            check(out == want, f"{what}: results differ from the sync card "
+                  f"cluster")
+            check(out == out_cpu, f"{what}: results differ from the CPU port")
+            _same_as_sync(gpu, sync, what)
+            _same_clusters(gpu, cpu, what)
+            check(gpu.switch.dispatch_count > 0 and launches,
+                  f"{what}: no dispatch ran on the card: {launches}")
+            rows.append(f"{name} {mode} max_inflight={inflight}: "
+                        f"{len(txns)} txns ({gpu.stats['hot']} hot), "
+                        f"{gpu.switch.dispatch_count} dispatches, launches "
+                        f"{launches}")
+    print("stream async (a): equal to the sync card cluster (results, "
+          "registers, GIDs, stats, WAL records) and to the async CPU port "
+          "(the same, WAL heads); no dispatch thread; " + "; ".join(rows),
+          flush=True)
+
+    # (b) the staging guard: a WRITE-only load burst behind a spin
+    gpu = make(yhi, "pallas", [], "cuda", async_hot=True, max_inflight=2)
+    cpu = make(yhi, "pallas", [], "cpu", async_hot=True, max_inflight=2)
+    q = gpu.switch._queue
+    depth = q.stager.pool
+    loads = [(k, 1000 + i)
+             for i, k in enumerate(sorted(yhi.placement.slot)[:3 * depth])]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(q.stream):
+        torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for k, v in loads:
+        gpu.load(k, v)
+    burst_ms = (time.perf_counter() - t0) * 1e3
+    for k, v in loads:
+        cpu.load(k, v)
+    _same_clusters(gpu, cpu, "stream async (b)")
+    check(all(gpu.read(k) == v for k, v in loads),
+          "stream async (b): a load was lost")
+    print(f"stream async (b): {len(loads)} WRITE-only loads through a "
+          f"{depth}-slot staging ring behind a {SPIN_CYCLES:,}-cycle spin, "
+          f"no drain: {burst_ms:.3f} ms on the host (the guard waits on the "
+          f"slots' copy events), read_all equal to the CPU port", flush=True)
+
+    # (c) a deferred dispatch returns while its kernel waits
+    hot = [t for t in ytxns if all(yhi.is_hot(k) for _, k, _ in t.ops)][:B]
+    pkts, meta = build_packets(hot, yhi, cfg)
+    before = _dispatch_threads()
+    eng = SwitchEngine(cfg, async_dispatch=True, device="cuda")
+    syn = SwitchEngine(cfg, device="cuda")
+    ref = SwitchEngine(cfg, device="cpu")
+    for e in (eng, syn, ref):       # the first call resolves the launcher
+        e.execute_batch(pkts, meta, mode="pallas").results_np()
+    async_us, sync_us, pending = [], [], []
+    for _ in range(9):
+        torch.cuda.synchronize()
+        with torch.cuda.stream(eng._queue.stream):
+            torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        pb = eng.execute_batch(pkts, meta, mode="pallas", defer=True)
+        async_us.append((time.perf_counter() - t0) * 1e6)
+        pending.append(not pb._fut.done())
+        want = ref.execute_batch(pkts, meta, mode="pallas")
+        check(np.array_equal(pb.results_np(), want.results_np())
+              and np.array_equal(pb.ok_np(), want.ok_np()),
+              "stream async (c): deferred results differ from the CPU engine")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sb = syn.execute_batch(pkts, meta, mode="pallas")
+        sync_us.append((time.perf_counter() - t0) * 1e6)
+        sb.results_np()
+    check(all(pending), f"stream async (c): a deferred execute_batch "
+          f"returned after its kernel ran: {pending}")
+    check(np.array_equal(eng.read_all(), ref.read_all()),
+          "stream async (c): registers differ from the CPU engine")
+    check(_dispatch_threads() <= before,
+          "stream async (c): a switch-dispatch thread started on the card")
+    pieces = _dispatch_pieces(cfg, pkts, meta)
+    print(f"stream async (c): a deferred execute_batch ({len(hot)} hot txns, "
+          f"N = {pkts['op'].size}) behind a spin returned with its done "
+          f"event pending {sum(pending)}/{len(pending)} times in "
+          f"{statistics.median(async_us):.1f} µs on the host (median; "
+          f"{min(async_us):.1f}-{max(async_us):.1f}); the sync engine's "
+          f"call {statistics.median(sync_us):.1f} µs "
+          f"({min(sync_us):.1f}-{max(sync_us):.1f}); results equal to the "
+          f"CPU engine; host µs by piece, the card idle (medians): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in pieces.items()),
+          flush=True)
+
+    # (d) one stream a plane, planes sharing a card too
+    rows = []
+    for n in (2, 4):
+        e = ShardedSwitchEngine(dataclasses.replace(cfg, n_switches=n),
+                                async_dispatch=True, device="cuda:0")
+        handles = [pl._queue.stream.cuda_stream for pl in e.planes]
+        check(all(isinstance(pl._queue, StreamQueue) for pl in e.planes)
+              and len(set(handles)) == n
+              and torch.cuda.current_stream(0).cuda_stream not in handles,
+              f"stream async (d): n={n} planes on streams {handles}")
+        rows.append(f"n={n}: {[hex(h) for h in handles]}")
+    check(_dispatch_threads() <= before,
+          "stream async (d): a switch-dispatch thread started on the card")
+    print("stream async (d): one stream a plane on cuda:0, " + "; ".join(rows)
+          + "; no dispatch thread started by a card engine", flush=True)
+
+    # (e) sync against async run_batch totals (phase 23 (b)'s setup): each
+    # cluster runs the stream twice, a first pass on fresh engines (a new
+    # stream's allocator pool, new pinned staging) and a second
+    p = ycsb.YCSBParams(variant="A")
+    sample = ycsb.generate(np.random.default_rng(SEED), 4000, p)
+    txns = ycsb.generate(np.random.default_rng(SEED + 3), 2 * B, p)
+    totals, first = {}, {}
+    for n in (1, 4):
+        cfg_n = dataclasses.replace(cfg, n_switches=n)
+        hi = build_hot_index(ycsb.traces(sample), top_k=400, switch=cfg_n)
+        for kind in ("sync", "async", "async", "sync"):
+            kw = dict(async_hot=True, max_inflight=4) if kind == "async" \
+                else {}
+            c = Cluster(8, cfg_n, hi, switch_mode="pallas", device="cuda",
+                        **kw)
+            c.snapshot_offload()
+            for pass_ in ("first", "second"):
+                work = batches(txns)
+                _sync_cards()
+                t0 = time.perf_counter()
+                out = _drained(c, work)
+                _sync_cards()
+                totals.setdefault(f"n={n} {kind} {pass_}", []).append(
+                    time.perf_counter() - t0)
+                check(out == first.setdefault(pass_, out),
+                      f"stream async (e) n={n} {kind} {pass_} pass: results "
+                      f"differ")
+    ratio = {f"n={n} {pass_}":
+             statistics.mean(totals[f"n={n} async {pass_}"])
+             / statistics.mean(totals[f"n={n} sync {pass_}"])
+             for n in (1, 4) for pass_ in ("first", "second")}
+    print(f"stream async (e) [{smi}]: 2 x {B} YCSB-A pallas run_batch "
+          f"totals, drain included, s (sync, async, async, sync clusters; "
+          f"a first and a second pass each): "
+          + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}"
+                      for k, v in totals.items())
+          + "; async / sync " + ", ".join(f"{k} {r:.3f}"
+                                          for k, r in ratio.items()),
+          flush=True)
+    print(f"stream async: phase 24 took {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -5432,6 +5780,7 @@ def main():
     kernels += walk
     oltp_cluster(smi)
     kernels[0]["multicard"] = multicard_path(tk, smi)
+    stream_async(tk, smi)
 
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,21 +30,26 @@ the port's replacement for the reference's buffer donation
 takes them in (``init_registers``, ``read_all``, ``snapshot``,
 ``restore``, ``load_registers``) therefore copies.
 
+An async engine (``async_dispatch=True``) runs its dispatches through
+``core/dispatch.py``: on a CUDA device on a stream of its own, each
+dispatch ordered by the stream and joined by the event recorded after
+it, with pinned staging; on the CPU on the reference's dispatch thread.
+
 ``device=None`` resolves to ``"cuda"`` and raises when no GPU is present;
 it never drops to the CPU.  Pass ``device="cpu"`` explicitly for the
 plain versions.
 """
 from __future__ import annotations
 
-import collections
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.packets import (ADD, ADDP, NOP, PacketStager,
-                                      ReadPacket, SwitchConfig,
-                                      result_plane, scan_flags, shard_rows)
+from repro_torch.core.dispatch import make_queue
+from repro_torch.core.packets import (ADD, ADDP, NOP, ReadPacket,
+                                      SwitchConfig, result_plane,
+                                      scan_flags, shard_rows)
 from repro_torch.kernels.switch_engine import ops as kwk
 from repro_torch.kernels.switch_engine.switch_engine import (
     affine_plain as _affine_engine_impl, serial_plain as _serial_engine_impl,
@@ -136,33 +141,38 @@ class PendingRead:
     """Opaque handle to one dispatched READ-only batch — the read tier's
     ``PendingBatch`` sibling.  Carries only the gathered values (device-
     resident until ``values_np()``); there is no ok plane, no GID and no
-    WAL footprint: reads are non-durable by construction."""
+    WAL footprint: reads are non-durable by construction.  An async
+    engine's handle carries its queue's handle (a future, or the done
+    event of a stream job) until resolved; ``host`` is the values' host
+    copy on a stream, the values themselves otherwise."""
 
-    __slots__ = ("vals", "n", "_fut", "_np")
+    __slots__ = ("vals", "n", "_fut", "_host", "_np")
 
     def __init__(self, vals, n, fut=None):
         self.vals, self.n = vals, n
         self._fut = fut
+        self._host = vals
         self._np = None
 
     def _resolve(self):
         if self._fut is not None:
-            self.vals = self._fut.result()
+            self.vals, self._host = self._fut.result()
             self._fut = None
+            return True
+        return False
 
     def values_np(self) -> np.ndarray:
         """Materialize the [n] value vector on host (cached)."""
         if self._np is None:
             self._resolve()
-            vals = self.vals
+            vals = self._host
             if isinstance(vals, torch.Tensor):
-                vals = vals.cpu().numpy()
+                vals = vals[:self.n].cpu().numpy()
             self._np = np.array(vals[:self.n])
         return self._np
 
     def block(self):
-        self._resolve()
-        if isinstance(self.vals, torch.Tensor):
+        if not self._resolve() and isinstance(self.vals, torch.Tensor):
             _sync(self.vals.device)
         return self
 
@@ -179,16 +189,20 @@ class PendingBatch:
     device-only result rows).  Host-side metadata — ``base`` (the
     host-derivable results: WRITE echoes, NOP zeros), ``idx`` (flat
     positions of the gathered rows) and ``gids`` — is available
-    immediately.  A deferred dispatch carries a future instead of tensors
-    until resolved; either way nothing crosses device -> host until
-    ``results_np()`` runs, and that transfer ships only the M compacted
-    values, not the whole B*K plane.
+    immediately.  An async dispatch carries its queue's handle instead
+    of tensors until resolved: a future on the dispatch thread, the done
+    event of its stream job on a card; either way nothing crosses device
+    -> host until ``results_np()`` runs, and that transfer ships only
+    the M compacted values, not the whole B*K plane.  A deferred
+    dispatch on a stream copied the ok plane and the compacted values
+    into pinned host buffers before its done event (``_host``); any
+    other handle reads the device tensors at drain, after its handle.
 
     Iteration yields ``(results[:B], ok[:B], gids)`` device slices, so
     ``res, ok, gids = engine.execute_batch(...)`` unpacking works."""
 
     __slots__ = ("res", "ok", "compact", "gids", "B", "K", "base", "idx",
-                 "mode", "_fut", "_res_np")
+                 "mode", "_fut", "_host", "_res_np")
 
     def __init__(self, res, ok, compact, gids, B, K, base, idx,
                  mode="auto", fut=None):
@@ -196,37 +210,42 @@ class PendingBatch:
         self.gids, self.B, self.K = gids, B, K
         self.base, self.idx, self.mode = base, idx, mode
         self._fut = fut
+        self._host = (ok, compact)
         self._res_np = None
 
     def _resolve(self):
-        """Join the dispatch thread's future (deferred handles only)."""
+        """Wait on the queue's handle (async handles only); True if there
+        was one."""
         if self._fut is not None:
-            _, self.res, self.ok, self.compact = self._fut.result()
+            self.res, self.ok, self.compact, self._host = self._fut.result()
             self._fut = None
+            return True
+        return False
 
     def results_np(self) -> np.ndarray:
         """Materialize the [B, K] result plane on host: the host-known
-        base overlaid with the compacted device gather (cached)."""
+        base overlaid with the compacted device gather (cached).  A batch
+        with no device-only result rows (WRITEs and NOPs) needs nothing
+        from the device, so it waits for nothing."""
         if self._res_np is None:
-            self._resolve()
             out = self.base.copy()
-            if len(self.idx):
-                out.reshape(-1)[self.idx] = \
-                    self.compact[:len(self.idx)].cpu().numpy()
+            n = len(self.idx)
+            if n:
+                self._resolve()
+                out.reshape(-1)[self.idx] = self._host[1][:n].cpu().numpy()
             self._res_np = out
         return self._res_np
 
     def ok_np(self) -> np.ndarray:
         self._resolve()
-        ok = self.ok
+        ok = self._host[0]
         if isinstance(ok, torch.Tensor):
-            ok = ok.cpu().numpy()
+            ok = ok[:self.B].cpu().numpy()
         return np.array(ok[:self.B])
 
     def block(self):
         """Barrier: wait for this dispatch's device work to finish."""
-        self._resolve()
-        if isinstance(self.res, torch.Tensor):
+        if not self._resolve() and isinstance(self.res, torch.Tensor):
             _sync(self.res.device)
         return self
 
@@ -235,8 +254,15 @@ class PendingBatch:
 
     def __iter__(self):
         self._resolve()
-        yield self.res[:self.B]
-        yield self.ok[:self.B]
+        res, ok = self.res[:self.B], self.ok[:self.B]
+        if isinstance(res, torch.Tensor) and res.is_cuda:
+            # made on the engine's stream: keep their memory from its
+            # next allocations until the caller's stream is done with them
+            cur = torch.cuda.current_stream(res.device)
+            res.record_stream(cur)
+            ok.record_stream(cur)
+        yield res
+        yield ok
         yield self.gids
 
 
@@ -252,61 +278,37 @@ class SwitchEngine:
                  device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.registers = init_registers(cfg, registers, self.device)
         self.next_gid = 0
         self.dispatch_count = 0
         self.read_dispatch_count = 0    # READ-only gathers (no GID, no WAL)
         self._scan_idx = None           # (host slots, device copy): last scan
-        # reusable host staging buffers (one fused H2D per dispatch); the
-        # pool must stay deeper than the caller's async in-flight window
-        self._stager = PacketStager(pool=stager_pool)
-        # async dispatch: a single-worker thread owns all device calls; one
-        # worker = FIFO = the switch's serial admission order is preserved
+        # where dispatches run (core/dispatch.py): inline on the caller's
+        # stream (sync), on a stream of this engine's own (async, CUDA) or
+        # on the dispatch thread (async, CPU); every one is FIFO, so the
+        # switch's serial admission order is preserved.  Its stager's
+        # reusable host staging buffers (one fused H2D per dispatch) must
+        # stay deeper than the caller's async in-flight window.
         self.async_dispatch = bool(async_dispatch)
-        self._pool = None
-        self._last_fut = None
-        self._defer_futs = collections.deque()   # submitted, not yet run
+        self._queue = make_queue(self.device, self.async_dispatch,
+                                 stager_pool)
+        self._stager = self._queue.stager
+        self._set_registers(init_registers(cfg, registers, self.device))
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
-        # copy=True: the staging buffer is recycled, so the device tensor
-        # must never alias host memory (on the CPU, .to() alone would)
-        return torch.from_numpy(x).to(self.device, copy=True)
+        """A host int32 array on the engine's device, through its queue
+        (pinned staging on a stream)."""
+        return self._queue.put(x)
 
-    # ------------------------------------------------ dispatch thread --
-    def _submit(self, job, defer: bool):
-        """Run ``job`` inline (sync engine), or on the dispatch thread.
-        Returns (outputs, future): exactly one is non-None; ``defer``
-        asks for the future, otherwise the call blocks for outputs.
-
-        Backpressure: a staging buffer may only be recycled after the
-        job reading it has executed, so outstanding deferred jobs are
-        bounded to the stager pool depth — the oldest is joined before a
-        submit that would overflow it."""
-        if not self.async_dispatch:
-            return job(), None
-        if self._pool is None:
-            from concurrent.futures import ThreadPoolExecutor
-            self._pool = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="switch-dispatch")
-        fut = self._pool.submit(job)
-        self._last_fut = fut
-        if defer:
-            self._defer_futs.append(fut)
-            while len(self._defer_futs) > self._stager.pool - 2:
-                self._defer_futs.popleft().result()
-            return None, fut
-        out = fut.result()      # FIFO worker: every earlier job is done
-        self._defer_futs.clear()
-        return out, None
+    def _set_registers(self, regs: torch.Tensor):
+        """Install a new register file, made on the caller's current
+        stream: a stream queue orders its later jobs after that."""
+        self.registers = regs
+        self._queue.fence()
 
     def _join(self):
-        """Wait for every submitted dispatch to finish.  EVERY outstanding
-        future is joined, so a failed dispatch re-raises here."""
-        while self._defer_futs:
-            self._defer_futs.popleft().result()
-        if self._last_fut is not None:
-            fut, self._last_fut = self._last_fut, None
-            fut.result()
+        """Wait for every submitted dispatch to finish; a failed one
+        (a future's exception, a device fault) raises here."""
+        self._queue.join()
 
     @staticmethod
     def _resolve_mode(mode: str, has_cadd: bool, has_addp: bool,
@@ -348,9 +350,12 @@ class SwitchEngine:
         bucket with NOP rows and crosses host -> device as ONE fused
         staging tensor; GIDs go to the B real packets only.  The dispatch
         also gathers the device-only result rows into a compact tensor, so
-        draining ships M values to host instead of B*K.  With
-        ``defer=True`` on an ``async_dispatch`` engine the dispatch runs on
-        the engine's thread and the handle carries a future."""
+        draining ships M values to host instead of B*K.  On an
+        ``async_dispatch`` engine the handle carries its queue's handle:
+        on a card the dispatch is launched on the engine's stream and the
+        call returns at once, a deferred one with the D2H of the
+        compacted rows and the ok plane queued behind it; on the CPU
+        ``defer=True`` runs it on the engine's thread."""
         op_np = np.asarray(pkts["op"], np.int32)
         B, K = op_np.shape
         if meta is None:
@@ -378,18 +383,24 @@ class SwitchEngine:
         # staged on the host thread (the packet arrays may be reused by
         # the caller); the job reads self.registers AT EXECUTION time
         staged = self._stager.stage(pkts, idx, Bp, Mp)
+        q, M = self._queue, len(idx)
 
         def job():
             fused = self._put(staged)
-            return _run_fused(mode, self.registers, fused, Mp)
+            _, res, ok, compact = _run_fused(mode, self.registers, fused, Mp)
+            # the drain's reads, ok and the compacted rows: a deferred
+            # dispatch queues their D2H now, a call read at once reads
+            # them after its handle
+            keep = (ok[:B], *([compact[:M]] if M else []))
+            return res, ok, compact, q.host(*keep) if defer else keep
 
         self.dispatch_count += 1
         self.next_gid = max(self.next_gid, int(gids[-1]) + 1)
-        out, fut = self._submit(job, defer)
+        out, fut = self._queue.submit(job, defer)
         if fut is not None:
             return PendingBatch(None, None, None, gids, B, K, base, idx,
                                 mode, fut=fut)
-        _, res, ok, compact = out
+        res, ok, compact, _ = out
         return PendingBatch(res, ok, compact, gids, B, K, base, idx, mode)
 
     def execute_reads(self, rp: ReadPacket, mode: str = "auto",
@@ -398,22 +409,26 @@ class SwitchEngine:
         straight from the resident registers — no GID, no WAL entry, no
         result plane.  One gather per call (power-of-two index bucket),
         values returned in key order.  On an ``async_dispatch`` engine the
-        gather runs on the same FIFO dispatch thread as every write, so it
-        observes every earlier write without a drain."""
+        gather runs in the same FIFO queue as every write (the engine's
+        stream, or its thread), so it observes every earlier write
+        without a drain."""
         M = rp.n
         if M == 0:
             return PendingRead(np.zeros(0, np.int32), 0)
         Mp = _bucket(M)
         idx = np.zeros(Mp, np.int32)
         idx[:M] = rp.flat_idx(self.cfg)
+        q = self._queue
+
         def job():          # every mode: one result_gather on the card
-            return ktx.gather_results(self.registers, self._put(idx))
+            vals = ktx.gather_results(self.registers, self._put(idx))
+            return vals, q.host(vals[:M])[0] if defer else vals[:M]
 
         self.read_dispatch_count += 1
-        out, fut = self._submit(job, defer)
+        out, fut = self._queue.submit(job, defer)
         if fut is not None:
             return PendingRead(None, M, fut=fut)
-        return PendingRead(out, M)
+        return PendingRead(out[0], M)
 
     def execute_scan(self, rp: ReadPacket, lo: int, hi: int,
                      cap: Optional[int] = None, k: Optional[int] = None):
@@ -426,20 +441,25 @@ class SwitchEngine:
         ``k`` returns the k largest in-range values (ties toward the
         lower slot position) plus the match count.  Returns host arrays
         ``(vals, pos, agg_or_count)`` where ``pos`` indexes into ``rp``'s
-        key order; like ``execute_reads`` the device call runs on the
-        FIFO dispatch thread, so it observes every earlier write without
-        a result-plane drain."""
+        key order; like ``execute_reads`` the device call runs in the
+        FIFO queue, so it observes every earlier write without a
+        result-plane drain; its device -> host copy follows the
+        dispatch's handle."""
         if (cap is None) == (k is None):
             raise ValueError("exactly one of cap/k")
-        idx = self._scan_slots(rp.flat_idx(self.cfg))
+        flat = rp.flat_idx(self.cfg)
 
         def job():
+            # the slot list's upload is queued before the scan that reads it
+            idx = self._scan_slots(flat)
             if k is not None:
                 return ktx.scan_topk(self.registers, idx, lo, hi, k=k)
             return ktx.scan_prune_packed(self.registers, idx, lo, hi, cap)
 
         self.read_dispatch_count += 1
-        out, _ = self._submit(job, defer=False)
+        out, fut = self._queue.submit(job, defer=False)
+        if fut is not None:         # a stream job: wait for it to run
+            out = fut.result()
         if k is not None:
             vals, pos, count = out
             return vals.cpu().numpy(), pos.cpu().numpy(), int(count)
@@ -466,18 +486,19 @@ class SwitchEngine:
         return self.registers.to("cpu", copy=True).numpy(), self.next_gid
 
     def restore(self, snap):
+        # joined first: no queued dispatch still reads the old file
         self._join()
         regs, gid = snap
         # init_registers copies: the snapshot (a checkpoint the warm
         # standby may restore from repeatedly) must never be aliased
-        self.registers = init_registers(self.cfg, regs, self.device)
+        self._set_registers(init_registers(self.cfg, regs, self.device))
         self.next_gid = gid
 
     def load_registers(self, values):
         """Replace the whole register file ([S, R] host array or tensor);
         copies, never aliases the input."""
         self._join()
-        self.registers = init_registers(self.cfg, values, self.device)
+        self._set_registers(init_registers(self.cfg, values, self.device))
 
     def read_value(self, slot) -> int:
         """Read one register by placement slot ((switch, stage, reg) or
@@ -489,7 +510,8 @@ class SwitchEngine:
 
 class ShardedSwitchEngine:
     """N-switch register plane: one ``SwitchEngine`` per shard, each with
-    its own register tensor and its own dispatch thread.  Given the
+    its own register tensor and, when async, its own stream (its own
+    dispatch thread on the CPU), also where planes share a card.  Given the
     default device (None or ``"cuda"``) with several cards visible, plane
     i lives on ``cuda:(i % device_count)``, as the reference pins each
     plane to its own JAX device; an explicit device (``"cpu"``,
@@ -649,7 +671,7 @@ class ShardedSwitchEngine:
         handle = _MergedBatch(gids, B, K, parts, mode, self.device)
         if not defer and self.async_dispatch:
             handle.block()     # non-deferred contract: work is done on
-        return handle          # return, matching SwitchEngine._submit
+        return handle          # return, as the dispatch thread's is
 
     def _exec_cross_row(self, op, stage, reg, val, gid):
         """Execute one cross-shard packet op-by-op in slot order: each op
@@ -682,7 +704,7 @@ class ShardedSwitchEngine:
     def execute_reads(self, rp: ReadPacket, mode: str = "auto",
                       defer: bool = False):
         """Sharded read path: split the READ-only batch by shard, gather
-        each shard's values on its own plane (its own dispatch thread),
+        each shard's values on its own plane (its own stream or thread),
         scatter back to key order on drain.  Reads touch disjoint
         registers per shard and modify nothing, so no cross-shard barrier
         exists — each key lives on exactly one shard."""

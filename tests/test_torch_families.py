@@ -12,7 +12,12 @@ Tolerances: float32 logits, caches and decode steps at 1e-4 (the same
 arithmetic, summed in another order, through a few layers and the
 head); the loss at 1e-5 and gradients at rtol 1e-4 / atol 1e-6, as
 ``tests/test_torch_train.py`` holds them; bfloat16 at the reference's
-own decode-vs-prefill tolerance, 5e-2 (tests/test_models.py)."""
+own decode-vs-prefill tolerance, 5e-2 (tests/test_models.py).
+
+The cases are split over two files by architecture, five each, so that
+two test workers share them: this file runs ``HERE``, and
+``tests/test_torch_families_b.py`` runs the same cases on the other five
+with its own ``arch``, ``drift`` and module-scoped ``world`` fixtures."""
 import dataclasses
 import functools
 from types import SimpleNamespace
@@ -52,6 +57,23 @@ from test_torch_train import _check_params  # noqa: E402
 
 B, L, LP, GEN = 2, 32, 16, 16      # LP, L: multiples of every smoke chunk
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+# this file's architectures (about half of the cases' time each side)
+HERE = ("zamba2_2p7b", "qwen1p5_0p5b", "starcoder2_15b", "internvl2_1b",
+        "musicgen_large")
+# the recurrent families' bf16 decode drift: (arch, prompt positions)
+DRIFT = (("rwkv6_7b", 240), ("zamba2_2p7b", 128))
+
+
+@pytest.fixture(scope="module", params=HERE)
+def arch(request):
+    return request.param
+
+
+@pytest.fixture(params=[d for d in DRIFT if d[0] in HERE],
+                ids=lambda d: f"{d[0]}-{d[1]}")
+def drift(request):
+    return request.param
 
 
 def _np(a):
@@ -137,11 +159,11 @@ def _jpad(cache, n):
     return {k: padk(a) if k in ("k", "v") else a for k, a in cache.items()}
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def world(request):
+@pytest.fixture(scope="module")
+def world(arch):
     """Float32: the JAX package's parameters and jitted functions, and
     the port's flat parameters and LM over them, on the CPU."""
-    jcfg, tcfg = _cfgs(request.param, "float32")
+    jcfg, tcfg = _cfgs(arch, "float32")
     jparams = _jinit(jcfg, 0)
     flat = {n: _np(a) for n, a in JP.flatten(jparams).items()}
     tparams = convert_params(flat, tcfg, "cpu")
@@ -158,7 +180,7 @@ def world(request):
             lambda p: JLM.loss_fn(jcfg, p, jb), has_aux=True))(jparams)
 
     return SimpleNamespace(batch=batch, jgrads=jgrads,
-        arch=request.param, jcfg=jcfg, tcfg=tcfg, jparams=jparams,
+        arch=arch, jcfg=jcfg, tcfg=tcfg, jparams=jparams,
         flat=flat, tparams=tparams, model=TLM.LM(tcfg, tparams),
         forward=jax.jit(lambda p, b: JLM.forward(jcfg, p, b,
                                                  collect_cache=True)),
@@ -168,7 +190,6 @@ def world(request):
 
 # ---------------------------------------------------------- definitions --
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_build_defs_matches_jax(arch):
     """Names, shapes, logical axes, init styles, scales and dtypes, for
     the registry's full config and its smoke config; the decode cache's
@@ -339,7 +360,6 @@ def _routed_alike(jcfg, jparams, tcfg, model, b):
     return ~np.maximum.accumulate(moved, axis=1)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_bf16_matches_jax(arch):
     """bfloat16 parameters (JAX's own, carried over bit for bit) and
     activations: logits within 5e-2 of the logits' scale (1 + the largest
@@ -401,7 +421,6 @@ def test_generate_matches_jax_serve_loop(world):
                                       out.tokens[:, i].numpy()[sure])
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_on_cpu(arch):
     """The launcher's ``serve`` on the CPU for every family: greedy tokens
     of the right shape and range."""
@@ -410,7 +429,6 @@ def test_serve_on_cpu(arch):
     assert ((toks >= 0) & (toks < get_smoke(arch).vocab_size)).all()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_launcher_defaults_to_cuda(arch, monkeypatch):
     """Without --device the launcher asks for cuda for every family: it
     raises where there is none and never falls back to the CPU."""
@@ -429,14 +447,14 @@ def _drift(logits, full, lp):
             / np.linalg.norm(want, axis=-1)).max(0)
 
 
-@pytest.mark.parametrize("arch,lp", [("rwkv6_7b", 240), ("zamba2_2p7b", 128)])
-def test_bf16_decode_drift_matches_jax(arch, lp):
+def test_bf16_decode_drift_matches_jax(drift):
     """The recurrent families in bfloat16, 8 rows of 256 tokens: prefill
     ``lp``, teacher-force the rest through decode in both packages (the
     same bf16 parameters).  Their states carry bf16 rounding forward
     through the decays, so decode drifts from the full forward in the
     reference too; the port's largest drift (relative L2 of a position's
     logits) is at most 1.25 times the reference's."""
+    arch, lp = drift
     jcfg, tcfg = _cfgs(arch, "bfloat16")
     jparams = _jinit(jcfg, 0)
     model = TLM.LM(tcfg, convert_params(
