@@ -984,6 +984,13 @@ def _span_totals(traces):
     return out
 
 
+def _top_s(traces):
+    """Seconds in the depth-0 spans of ``traces`` (nested spans lie inside
+    them)."""
+    return sum(s_.duration for tr in traces for s_ in tr.spans
+               if s_.depth == 0)
+
+
 def _same_clusters(a, b, what):
     check(np.array_equal(a.switch.read_all(), b.switch.read_all()),
           f"{what}: registers differ from the CPU port")
@@ -1050,7 +1057,8 @@ def main_path(tk, label, device="cuda"):
           f"main: the replay of {known}+{unknown} sends launched "
           f"{rec_launches}, not one affine walk a send")
 
-    spans = _span_totals(_batch_traces(gpu))
+    batches = _batch_traces(gpu)
+    spans = _span_totals(batches)
     total = sum(times)
     groups = launches["switch_txn_smem"]
     print(f"main [{label}]: {len(txns)} txns ({gpu.stats['hot']} hot) in "
@@ -1060,7 +1068,7 @@ def main_path(tk, label, device="cuda"):
           f"({groups / 8:.2f} per run_batch); launches {launches}", flush=True)
     print("main: host spans over 8 run_batch (s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in spans.items())
-          + f", rest {total - sum(spans.values()):.4f}", flush=True)
+          + f", rest {total - _top_s(batches):.4f}", flush=True)
     # the replay runs each send in auto mode (Cluster._replay_into, as
     # the reference does): one affine walk launch a send
     print(f"main: crash_switch_and_recover replayed {known}+{unknown} sends "
@@ -1970,7 +1978,7 @@ def tpcc_path(tk, label):
     # (spans only; results, registers and WAL are untouched)
     warm = Trace("warm")
     run_hot = gpu._run_hot
-    gpu._run_hot = lambda txn, tr=None: run_hot(txn, tr=warm)
+    gpu._run_hot = lambda txn, tr=None, **kw: run_hot(txn, tr=warm, **kw)
     d0 = gpu.switch.dispatch_count
     _reset(tk)
     out_gpu, times = [], []
@@ -2022,10 +2030,9 @@ def tpcc_path(tk, label):
           flush=True)
     print(f"tpcc [{label}]: host spans over 8 run_batch (s): "
           + ", ".join(f"{k} {v:.4f}" for k, v in spans.items())
-          + "; warm switch sub-txns: "
+          + "; inside the warm switch sub-txns: "
           + ", ".join(f"{k} {v:.4f}" for k, v in wspans.items())
-          + f"; rest (cold parts, 2PL, WAL) "
-          f"{total - sum(spans.values()) - sum(wspans.values()):.4f}",
+          + f"; rest (outside every span) {total - _top_s(batches):.4f}",
           flush=True)
     print(f"tpcc [{label}]: crash_switch_and_recover {t_rec:.2f} s, "
           "registers identical", flush=True)

@@ -30,6 +30,11 @@ copies (a job the caller reads at once reads after its handle).
 or an error, never the thread.  ``CudaApi`` holds the CUDA calls the
 stream queue makes, so a CPU test can drive its bookkeeping with
 stand-ins.
+
+``stamp()`` records a timing event on the stream a queue's jobs run on
+(the caller's current stream inline, the queue's own on a stream) and
+returns it; None where there are no events (the CPU, the thread).  A
+timed dispatch stamps before and at the end of its job.
 """
 from __future__ import annotations
 
@@ -46,12 +51,24 @@ from repro_torch.core.packets import N_PLANES, PacketStager
 class InlineQueue:
     """The sync engine's queue: ``submit`` runs the job now."""
 
-    def __init__(self, device: torch.device, depth: int):
+    def __init__(self, device: torch.device, depth: int,
+                 api: CudaApi = None):
         self.device = device
         self.stager = PacketStager(pool=depth)
+        if api is None and device.type == "cuda":
+            api = cuda_api()
+        self._api = api
 
     def submit(self, job, defer: bool):
         return job(), None
+
+    def stamp(self):
+        """A timing event recorded on the caller's current stream."""
+        if self._api is None or self._api.timer is None:
+            return None
+        ev = self._api.timer()
+        ev.record(self._api.current(self.device))
+        return ev
 
     def join(self):
         pass
@@ -120,6 +137,7 @@ class CudaApi:
     scope: Callable[[Any], Any]               # makes a stream current
     current: Callable[[torch.device], Any]    # a device's current stream
     pin: bool = True                          # pinned host buffers
+    timer: Callable[[], Any] = None           # a new event that keeps time
 
 
 class OnStream:
@@ -147,10 +165,28 @@ class OnStream:
             torch._C._cuda_setDevice(self._dev)
 
 
+_STREAMS: Dict[tuple, Any] = {}
+
+
+def current_stream(device: torch.device):
+    """``torch.cuda.current_stream(device)``, its ``Stream`` made once a
+    stream: ``current_stream`` makes one a call (~10 us of host time on
+    the H100's host, twice a timed sync dispatch)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = torch._C._cuda_getCurrentStream(index)
+    stream = _STREAMS.get(key)
+    if stream is None:
+        stream = _STREAMS[key] = torch.cuda.Stream(
+            stream_id=key[0], device_index=key[1], device_type=key[2])
+    return stream
+
+
 def cuda_api() -> CudaApi:
     return CudaApi(stream=lambda d: torch.cuda.Stream(device=d),
                    event=torch.cuda.Event, scope=OnStream,
-                   current=torch.cuda.current_stream)
+                   current=current_stream,
+                   timer=lambda: torch.cuda.Event(enable_timing=True))
 
 
 class _Slot:
@@ -290,6 +326,14 @@ class StreamQueue:
 
     def put(self, x: np.ndarray) -> torch.Tensor:
         return self.stager.put(x)
+
+    def stamp(self):
+        """A timing event recorded on the queue's stream."""
+        if self._api.timer is None:
+            return None
+        ev = self._api.timer()
+        ev.record(self.stream)
+        return ev
 
     def host(self, *ts: torch.Tensor):
         """Pinned host copies of ``ts``, queued on the current stream (the

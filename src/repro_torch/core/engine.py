@@ -199,16 +199,20 @@ class PendingBatch:
     other handle reads the device tensors at drain, after its handle.
 
     Iteration yields ``(results[:B], ok[:B], gids)`` device slices, so
-    ``res, ok, gids = engine.execute_batch(...)`` unpacking works."""
+    ``res, ok, gids = engine.execute_batch(...)`` unpacking works.
+
+    ``timing``: a timed dispatch's (start, end) events around its job,
+    else None."""
 
     __slots__ = ("res", "ok", "compact", "gids", "B", "K", "base", "idx",
-                 "mode", "_fut", "_host", "_res_np")
+                 "mode", "timing", "_fut", "_host", "_res_np")
 
     def __init__(self, res, ok, compact, gids, B, K, base, idx,
-                 mode="auto", fut=None):
+                 mode="auto", fut=None, timing=None):
         self.res, self.ok, self.compact = res, ok, compact
         self.gids, self.B, self.K = gids, B, K
         self.base, self.idx, self.mode = base, idx, mode
+        self.timing = timing
         self._fut = fut
         self._host = (ok, compact)
         self._res_np = None
@@ -310,6 +314,11 @@ class SwitchEngine:
         (a future's exception, a device fault) raises here."""
         self._queue.join()
 
+    def stamp(self):
+        """A timing event recorded on the stream this engine's dispatches
+        run on; None where there are no events (the CPU)."""
+        return self._queue.stamp()
+
     @staticmethod
     def _resolve_mode(mode: str, has_cadd: bool, has_addp: bool,
                       addp_unsafe: bool) -> str:
@@ -340,7 +349,8 @@ class SwitchEngine:
 
     def execute_batch(self, pkts: Dict[str, np.ndarray],
                       meta: Optional[dict] = None, mode: str = "auto",
-                      defer: bool = False, gids=None) -> PendingBatch:
+                      defer: bool = False, gids=None,
+                      timed: bool = False) -> PendingBatch:
         """The batched hot path: execute all B packets in one dispatch
         (serial order = batch order) and return a ``PendingBatch`` handle
         without forcing materialization.
@@ -355,7 +365,9 @@ class SwitchEngine:
         on a card the dispatch is launched on the engine's stream and the
         call returns at once, a deferred one with the D2H of the
         compacted rows and the ok plane queued behind it; on the CPU
-        ``defer=True`` runs it on the engine's thread."""
+        ``defer=True`` runs it on the engine's thread.  ``timed`` stamps
+        the job's stream before the job and as its last step (the
+        handle's ``timing``; none on the CPU)."""
         op_np = np.asarray(pkts["op"], np.int32)
         B, K = op_np.shape
         if meta is None:
@@ -384,24 +396,31 @@ class SwitchEngine:
         # the caller); the job reads self.registers AT EXECUTION time
         staged = self._stager.stage(pkts, idx, Bp, Mp)
         q, M = self._queue, len(idx)
+        start, end = q.stamp() if timed else None, None
 
         def job():
+            nonlocal end
             fused = self._put(staged)
             _, res, ok, compact = _run_fused(mode, self.registers, fused, Mp)
             # the drain's reads, ok and the compacted rows: a deferred
             # dispatch queues their D2H now, a call read at once reads
             # them after its handle
             keep = (ok[:B], *([compact[:M]] if M else []))
-            return res, ok, compact, q.host(*keep) if defer else keep
+            out = res, ok, compact, q.host(*keep) if defer else keep
+            if start is not None:
+                end = q.stamp()
+            return out
 
         self.dispatch_count += 1
         self.next_gid = max(self.next_gid, int(gids[-1]) + 1)
         out, fut = self._queue.submit(job, defer)
+        timing = None if start is None else (start, end)
         if fut is not None:
             return PendingBatch(None, None, None, gids, B, K, base, idx,
-                                mode, fut=fut)
+                                mode, fut=fut, timing=timing)
         res, ok, compact, _ = out
-        return PendingBatch(res, ok, compact, gids, B, K, base, idx, mode)
+        return PendingBatch(res, ok, compact, gids, B, K, base, idx, mode,
+                            timing=timing)
 
     def execute_reads(self, rp: ReadPacket, mode: str = "auto",
                       defer: bool = False) -> PendingRead:
@@ -591,6 +610,12 @@ class ShardedSwitchEngine:
     def _join(self):
         for p in self.planes:
             p._join()
+
+    @staticmethod
+    def stamp():
+        """None: a sharded dispatch spans planes and records no device
+        events."""
+        return None
 
     # --------------------------------------------------------- execution --
     def execute(self, pkts: Dict[str, np.ndarray], mode: str = "auto"

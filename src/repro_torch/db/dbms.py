@@ -77,6 +77,12 @@ def _span(tr, name):
     off or this txn wasn't sampled."""
     return tr.span(name) if tr is not None else contextlib.nullcontext()
 
+
+# ``execute_batch``'s keywords for a dispatch whose device time is recorded
+# (``Cluster._timing``), and for any other
+_TIMED = {"timed": True}
+_UNTIMED = {}
+
 # base tid for Cluster.load() fixture writes — disjoint from client txns
 # and from migration tids (which use 1 << 40, see repro.db.migrate).  The
 # counter is PER CLUSTER (not module-global) so two independently built
@@ -464,7 +470,7 @@ class Cluster:
             self.stats["hot"] += 1
             out = self._run_hot(txn, tr=tr)
         else:
-            out = self._run_with_retries(txn, kind, max_retries)
+            out = self._run_with_retries(txn, kind, max_retries, tr=tr)
         if self.metrics is not None:
             self.metrics.histogram(
                 H_TXN_LATENCY, help="admission-to-result txn latency",
@@ -481,16 +487,25 @@ class Cluster:
                                        flags["addp_unsafe"])
 
     # hot: switch-only, abort-free, no coordination (paper §5)
-    def _run_hot(self, txn: Txn, tr=None):
+    def _run_hot(self, txn: Txn, tr=None, sub=None):
+        """One txn's switch dispatch, traced on ``tr``; a warm txn's sub-
+        txn runs untraced, and ``sub`` (its trace and ``switch-sub`` span)
+        takes the dispatch's device time."""
         home = self.nodes[txn.home]
         with _span(tr, "packet-build"):
             pkt, meta = build_packets([txn], self.hot_index, self.switch_cfg)
         self._validate_mode(meta)
         home.log("switch_send", txn.tid, ops=list(txn.ops))
+        on, took = sub if sub is not None else (tr, None)
+        timing = self._timing(on)
         with _span(tr, "dispatch"):
-            pb = self.switch.execute_batch(pkt, meta, mode=self.switch_mode)
-        with _span(tr, "drain"):
+            pb = self.switch.execute_batch(pkt, meta, mode=self.switch_mode,
+                                           **timing)
+        with _span(tr, "drain") as drain:
             res = pb.results_np()
+        if timing:
+            self.tracer.took(on, took or drain, self.switch.device,
+                             pb.timing)
         home.log("switch_result", txn.tid, gid=int(pb.gids[0]),
                  results=res[0, :len(txn.ops)].tolist())
         self.stats["commits"] += 1
@@ -566,7 +581,8 @@ class Cluster:
                 # AND sync every outstanding handle (consistency point)
                 self._flush_hot_group(pending, results, tr=tr)
                 self.drain()
-            results[i] = self._run_with_retries(txn, kind, max_retries)
+            results[i] = self._run_with_retries(txn, kind, max_retries,
+                                                tr=tr)
         self._flush_hot_group(pending, results, tr=tr)
         if self.metrics is not None:
             # admission -> dispatch for the async path (results still lazy
@@ -578,7 +594,8 @@ class Cluster:
             return LazyResults(self, results)
         return results
 
-    def _run_with_retries(self, txn: Txn, kind: str, max_retries: int):
+    def _run_with_retries(self, txn: Txn, kind: str, max_retries: int,
+                          tr=None):
         """Cold/warm execution under the retry policy.  Attempts are
         budgeted by ``self.retry_policy`` — or, when none is set, a
         default ``RetryPolicy(max_retries=max_retries)`` whose schedule
@@ -587,8 +604,9 @@ class Cluster:
         falsy ``GAVE_UP`` sentinel (NOT ``None`` — ``None`` is an
         undrained async slot) after one ``gave_up`` bump.  Per-class
         attempt counts land in the ``txn_retries`` histogram; ops burnt
-        by eventually-aborted attempts in ``stats["wasted_ops"]``."""
-        fn = self._run_cold if kind == "cold" else self._run_warm
+        by eventually-aborted attempts in ``stats["wasted_ops"]``.  A warm
+        attempt is traced on ``tr``."""
+        cold = kind == "cold"
         policy = self.retry_policy if self.retry_policy is not None \
             else RetryPolicy(max_retries=max_retries)
         det = self.detector
@@ -612,7 +630,8 @@ class Cluster:
                                              attempt=attempt)
                     continue
             try:
-                out = fn(txn)
+                out = self._run_cold(txn) if cold \
+                    else self._run_warm(txn, tr=tr)
                 if det is not None:
                     det.release(txn.tid)
                 self._observe_retries(kind, attempts)
@@ -666,8 +685,9 @@ class Cluster:
         keep the single-dispatch, validate-as-a-unit contract."""
         if not pending:
             return
-        pkts, meta = build_packets([t for _, t in pending], self.hot_index,
-                                   self.switch_cfg)
+        with _span(tr, "packet-build"):
+            pkts, meta = build_packets([t for _, t in pending],
+                                       self.hot_index, self.switch_cfg)
         if self.switch_mode == "auto" and meta["addp_unsafe"] \
                 and len(pending) > 1:
             unsafe = addp_unsafe_rows(pkts)
@@ -695,26 +715,31 @@ class Cluster:
         returns to admission, overlapping the NEXT group's packet build
         with this group's device execution."""
         group = [t for _, t in pending]
-        with _span(tr, "packet-build"):
-            pkts, meta = prebuilt or build_packets(group, self.hot_index,
-                                                   self.switch_cfg)
+        if prebuilt is None:
+            with _span(tr, "packet-build"):
+                prebuilt = build_packets(group, self.hot_index,
+                                         self.switch_cfg)
+        pkts, meta = prebuilt
         self._validate_mode(meta)
-        for t in group:
-            # list(t.ops): ops tuples are immutable, no need to repack
-            self.nodes[t.home].log("switch_send", t.tid, ops=list(t.ops))
+        with _span(tr, "wal-send"):
+            for t in group:
+                # list(t.ops): ops tuples are immutable, no need to repack
+                self.nodes[t.home].log("switch_send", t.tid, ops=list(t.ops))
         # Fig-9 window: sends are logged (committed-on-send) but the device
         # has not executed — a crash here leaves the whole group as
         # unknown-GID entries that recovery must replay
         self._fault("mid_group_dispatch", tids=[t.tid for t in group])
+        timing = self._timing(tr)
         with _span(tr, "dispatch"):
             if self.async_hot:
                 pb = self.switch.execute_batch(pkts, meta,
                                                mode=self.switch_mode,
-                                               defer=True)
+                                               defer=True, **timing)
             else:
                 # 3-arg call kept for monkeypatch/spy compatibility
                 pb = self.switch.execute_batch(pkts, meta,
-                                               mode=self.switch_mode)
+                                               mode=self.switch_mode,
+                                               **timing)
         multipass = int(np.count_nonzero(pkts["is_multipass"][:len(group)]))
         self.stats["commits"] += len(group)
         if multipass:
@@ -761,21 +786,35 @@ class Cluster:
         and scatter it back to clients + WALs, vectorized: one
         ``put_along_axis`` un-permutes all packet slots to txn op order
         instead of a per-op Python loop."""
-        with _span(tr, "drain"):
+        with _span(tr, "drain") as took:
             res = pb.results_np()                   # [B, K] host plane
-        B, K = res.shape
-        order = meta["order"]
-        n_ops = meta["n_ops"]
-        valid = np.arange(K)[None, :] < np.asarray(n_ops)[:, None]
-        # pad slots scatter into a sacrificial extra column
-        outs = np.zeros((B, K + 1), res.dtype)
-        np.put_along_axis(outs, np.where(valid, order, K), res, axis=1)
-        for b, (i, t) in enumerate(pending):
-            n = len(t.ops)
-            self.nodes[t.home].log("switch_result", t.tid,
-                                   gid=int(pb.gids[b]),
-                                   results=res[b, :n].tolist())
-            results[i] = outs[b, :n].tolist()
+        timing = getattr(pb, "timing", None)
+        if timing is not None:
+            self.tracer.took(tr, took, self.switch.device, timing)
+        with _span(tr, "scatter"):
+            B, K = res.shape
+            order = meta["order"]
+            n_ops = meta["n_ops"]
+            valid = np.arange(K)[None, :] < np.asarray(n_ops)[:, None]
+            # pad slots scatter into a sacrificial extra column
+            outs = np.zeros((B, K + 1), res.dtype)
+            np.put_along_axis(outs, np.where(valid, order, K), res, axis=1)
+            for b, (i, t) in enumerate(pending):
+                n = len(t.ops)
+                self.nodes[t.home].log("switch_result", t.tid,
+                                       gid=int(pb.gids[b]),
+                                       results=res[b, :n].tolist())
+                results[i] = outs[b, :n].tolist()
+
+    def _timing(self, tr) -> dict:
+        """``execute_batch``'s keywords for a dispatch traced on ``tr``:
+        ``timed`` where the tracer records device events and the engine
+        has them (not on the CPU, not sharded), after anchoring the card's
+        clock once a window.  Off, one attribute test."""
+        if tr is None or not self.tracer.device_events:
+            return _UNTIMED
+        return _TIMED if self.tracer.anchor(self.switch.device,
+                                            self.switch.stamp) else _UNTIMED
 
     def _to_packet(self, txn: Txn):
         """Build the switch packet for ONE txn: ``build_packets`` at B=1,
@@ -849,38 +888,46 @@ class Cluster:
 
     # warm: cold part made abort-proof first, then the switch sub-txn
     # (paper §6.2, Fig 8/10)
-    def _run_warm(self, txn: Txn):
-        self._ts += 1
-        hot_keys = {k for k in txn.keys() if self.hot_index.is_hot(k)}
-        cold_ops = [(i, (o, k, v)) for i, (o, k, v) in enumerate(txn.ops)
-                    if k not in hot_keys]
-        hot_ops = [(i, (o, k, v)) for i, (o, k, v) in enumerate(txn.ops)
-                   if k in hot_keys]
-        # ADDP across the hot/cold boundary would need the cold tuple
-        # offloaded too (paper §6.2); workloads avoid it by construction.
-        cold_txn = Txn(txn.kind, [op for _, op in cold_ops], txn.home,
-                       tid=txn.tid)
-        hot_txn = Txn(txn.kind, [op for _, op in hot_ops], txn.home,
-                      tid=txn.tid)
-        # an explicit switch_mode that rejects the hot sub-txn must fail
-        # BEFORE the cold part takes locks and applies/logs its writes
-        if self.switch_mode != "auto":
-            _, meta = build_packets([hot_txn], self.hot_index,
-                                    self.switch_cfg)
-            self._validate_mode(meta)
-        cold_res = self._exec_on_nodes(cold_txn, ts=self._ts)
-        # cold part can no longer abort -> send switch sub-txn
-        hot_res = self._run_hot(hot_txn)
-        # commit cold part everywhere (2PC decision broadcast)
-        for p in {node_of(k) for k in cold_txn.keys()}:
-            self.nodes[p].log("commit", txn.tid)
-            self.nodes[p].release_all(txn.tid)
-        results = [0] * len(txn.ops)
-        for (i, _), r in zip(cold_ops, cold_res):
-            results[i] = r
-        for (i, _), r in zip(hot_ops, hot_res):
-            results[i] = r
-        return results
+    def _run_warm(self, txn: Txn, tr=None):
+        """One warm attempt, traced on ``tr`` as ``warm`` holding its cold
+        part, switch sub-txn and 2PC decision."""
+        with _span(tr, "warm"):
+            self._ts += 1
+            hot_keys = {k for k in txn.keys() if self.hot_index.is_hot(k)}
+            cold_ops = [(i, (o, k, v)) for i, (o, k, v) in enumerate(txn.ops)
+                        if k not in hot_keys]
+            hot_ops = [(i, (o, k, v)) for i, (o, k, v) in enumerate(txn.ops)
+                       if k in hot_keys]
+            # ADDP across the hot/cold boundary would need the cold tuple
+            # offloaded too (paper §6.2); workloads avoid it by construction.
+            cold_txn = Txn(txn.kind, [op for _, op in cold_ops], txn.home,
+                           tid=txn.tid)
+            hot_txn = Txn(txn.kind, [op for _, op in hot_ops], txn.home,
+                          tid=txn.tid)
+            # an explicit switch_mode that rejects the hot sub-txn must fail
+            # BEFORE the cold part takes locks and applies/logs its writes
+            if self.switch_mode != "auto":
+                _, meta = build_packets([hot_txn], self.hot_index,
+                                        self.switch_cfg)
+                self._validate_mode(meta)
+            with _span(tr, "cold-exec"):
+                cold_res = self._exec_on_nodes(cold_txn, ts=self._ts)
+            # cold part can no longer abort -> send switch sub-txn (untraced:
+            # its span takes the dispatch's device time)
+            with _span(tr, "switch-sub") as sub:
+                hot_res = self._run_hot(hot_txn) if tr is None \
+                    else self._run_hot(hot_txn, sub=(tr, sub))
+            # commit cold part everywhere (2PC decision broadcast)
+            with _span(tr, "commit"):
+                for p in {node_of(k) for k in cold_txn.keys()}:
+                    self.nodes[p].log("commit", txn.tid)
+                    self.nodes[p].release_all(txn.tid)
+            results = [0] * len(txn.ops)
+            for (i, _), r in zip(cold_ops, cold_res):
+                results[i] = r
+            for (i, _), r in zip(hot_ops, hot_res):
+                results[i] = r
+            return results
 
     # ----------------------------------------------- faults & durability --
     def _fault(self, point: str, **ctx):

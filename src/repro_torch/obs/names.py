@@ -58,6 +58,12 @@ SIM_ALIASES = {
 # Span vocabularies (trace point names, in causal order).
 FUNCTIONAL_SPANS = ("classify", "packet-build", "dispatch", "drain")
 SIM_SPANS = ("admission", "batcher-join", "switch-service", "commit")
+# The port's cluster only: a hot group's send records and result scatter,
+# one warm attempt with its cold part, switch sub-txn and 2PC decision
+# (depth 1), and a dispatch's device time on the host clock
+# (``Tracer.device_events``).
+PORT_SPANS = ("wal-send", "scatter", "warm", "cold-exec", "switch-sub",
+              "commit", "device")
 
 # Shared histogram / gauge names used by both instrumented layers.
 H_TXN_LATENCY = "txn_latency_seconds"

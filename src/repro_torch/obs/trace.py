@@ -36,6 +36,16 @@ class Span:
         return f"Span({self.name!r}, {self.t0:.6g}..{self.t1 if self.t1 is None else round(self.t1, 9)}, d{self.depth})"
 
 
+class DeviceSpan(Span):
+    """A dispatch's time on ``card``, open (``t0`` NaN, ``t1`` None) until
+    ``Tracer.settle`` reads its (start, end) timing events."""
+    __slots__ = ("card", "pair")
+
+    def __init__(self, card, pair, depth):
+        super().__init__("device", float("nan"), depth=depth)
+        self.card, self.pair = card, pair
+
+
 class Trace:
     __slots__ = ("label", "spans", "_stack", "_clock")
 
@@ -78,7 +88,18 @@ class Tracer:
     and ``None`` otherwise; call sites must tolerate ``None`` (span recording
     is skipped).  Sampling is a plain modulo counter, never a clock or RNG,
     so identical runs trace identical txns.
+
+    Device time (the port's cluster): with ``device_events`` set on an
+    instance, every switch dispatch of a traced batch records a timing
+    event pair around its job on the stream the job runs on, and the host
+    taking its results hands the pair to ``took``, which puts an open
+    ``device`` span right after the span that took them.  ``settle()``,
+    called by whoever reads the traces (after the window's last sync),
+    closes each such span on this tracer's clock through one anchor per
+    card a window (``anchor``).  Off by default: then nothing is recorded.
     """
+
+    device_events = False
 
     def __init__(self, clock=time.perf_counter, capacity=256, sample_every=1):
         self.clock = clock
@@ -87,6 +108,8 @@ class Tracer:
         self.traces = collections.deque(maxlen=capacity)
         self.started = 0
         self._n = 0
+        self._anchors = {}      # card -> (anchor event, clock reading)
+        self.anchor_skew_s = {}  # card -> the second anchor's miss, s
 
     def start(self, label):
         self._n += 1
@@ -98,6 +121,60 @@ class Tracer:
         return tr
 
     def clear(self):
+        """Start a new window: forget the traces and the anchors."""
         self.traces.clear()
         self.started = 0
         self._n = 0
+        self._anchors.clear()
+        self.anchor_skew_s.clear()
+
+    # ------------------------------------------------------- device time --
+    def anchor(self, card, stamp) -> bool:
+        """Tie ``card``'s event clock to this tracer's clock, once a
+        window: ``stamp()`` records a timing event on the card's stream
+        (None where the card has no events, as on the CPU), which is
+        waited for and read against the clock.  A second anchor right
+        after it measures the tie's uncertainty: ``anchor_skew_s[card]``
+        is the second reading less the first's prediction of it.  True
+        where ``card`` has an anchor."""
+        if card in self._anchors:
+            return True
+        first = stamp()
+        if first is None:
+            return False
+        first.synchronize()
+        t_first = self.clock()
+        second = stamp()
+        second.synchronize()
+        t_second = self.clock()
+        self._anchors[card] = (first, t_first)
+        self.anchor_skew_s[card] = t_second - (
+            t_first + first.elapsed_time(second) * 1e-3)
+        return True
+
+    def took(self, trace, span, card, pair):
+        """The host took the results of a dispatch on ``card`` timed by
+        ``pair`` (start, end events) inside ``span``, the last span of
+        ``trace``: an open ``device`` span goes right after it, and
+        ``settle`` closes it.  Reading the events costs more host time
+        than recording them, so that waits for the reader."""
+        trace.spans.append(DeviceSpan(card, pair, span.depth))
+
+    def settle(self) -> int:
+        """Close every open ``device`` span of the retained traces whose
+        end event has completed, without waiting on a card; returns how
+        many stay open."""
+        left = 0
+        for trace in self.traces:
+            for s in trace.spans:
+                if s.t1 is not None or not isinstance(s, DeviceSpan):
+                    continue
+                start, end = s.pair
+                if s.card not in self._anchors or not end.query():
+                    left += 1
+                    continue
+                ev, t = self._anchors[s.card]
+                s.t0 = t + ev.elapsed_time(start) * 1e-3
+                s.t1 = t + ev.elapsed_time(end) * 1e-3
+                s.pair = None
+        return left
