@@ -34,12 +34,22 @@ The list-like surface of ``SegmentedWAL`` (len / iteration / indexing /
 slicing) is deliberate: every existing test and bench that pokes
 ``node.wal`` — negative indexing, filtering into plain lists, slice
 truncation — keeps working unchanged.
+
+In memory a sealed segment's records are held packed: one pickled
+``bytes`` object in place of a record object, a payload dict and its
+lists per record, so the garbage collector's full passes do not walk the
+log's history.  Only the open segment is held as live ``WALRecord``s.
+Any read of a sealed segment (an index, a slice, iteration, ``verify``,
+``save``) unpacks it and keeps it unpacked, so an edit made through the
+list surface persists and ``verify()`` sees it.  ``packed_segments`` and
+``unpacked_segments`` count the segments held packed and the unpacks.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import pickle
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple
 
@@ -67,11 +77,28 @@ def _jsonable(obj):
     raise TypeError(f"not JSON-serializable for WAL hashing: {type(obj)}")
 
 
+def _canon_encoder():
+    """The encoder of ``json.dumps(obj, sort_keys=True, separators=(",",
+    ":"), default=_jsonable)``, built once: ``json.dumps`` builds a
+    ``JSONEncoder`` and ``encode`` its C encoder on every call.  The C
+    encoder is built without the circular-reference markers (a record
+    holds no cycle), so it keeps no state between calls."""
+    enc = json.JSONEncoder(sort_keys=True, separators=(",", ":"),
+                           default=_jsonable)
+    c = json.encoder.c_make_encoder(
+        None, enc.default, json.encoder.encode_basestring_ascii, enc.indent,
+        enc.key_separator, enc.item_separator, enc.sort_keys, enc.skipkeys,
+        enc.allow_nan)
+    return lambda obj: "".join(c(obj, 0))
+
+
+_encode = _canon_encoder()
+
+
 def _canon(obj) -> bytes:
     # sort_keys + fixed separators => byte-stable serialization; tuples and
     # lists serialize identically, so hashes survive a JSONL round-trip
-    return json.dumps(obj, sort_keys=True, separators=(",", ":"),
-                      default=_jsonable).encode()
+    return _encode(obj).encode()
 
 
 def record_hash(prev: str, lsn: int, kind: str, tid: int, payload: dict) -> str:
@@ -100,6 +127,133 @@ class SegmentMeta:
     seal_hash: str = ""
 
 
+class _Packed:
+    """A sealed run of records as one pickled ``bytes`` object, which the
+    collector does not walk.  ``pickle`` keeps every payload's types
+    (``marshal`` would turn a numpy scalar into ``bytes``)."""
+    __slots__ = ("blob", "n", "last")
+
+    def __init__(self, recs: List[WALRecord]):
+        self.blob = pickle.dumps(
+            [(r.lsn, r.kind, r.tid, r.payload, r.prev, r.hash)
+             for r in recs], pickle.HIGHEST_PROTOCOL)
+        self.n = len(recs)
+        self.last = (recs[-1].hash, recs[-1].lsn)
+
+    def records(self) -> List[WALRecord]:
+        return [WALRecord(*row) for row in pickle.loads(self.blob)]
+
+
+class _Records:
+    """The log's records as one list.  ``chunks`` holds them in order:
+    each sealed run a ``_Packed`` until something reads it, then a plain
+    list again; the last chunk is always the live list ``append`` fills.
+    Only the last chunk may be empty."""
+
+    def __init__(self):
+        self.chunks: list = [[]]
+        self.n = 0
+        self.packed = 0          # chunks held packed now
+        self.unpacked = 0        # packed chunks a read has unpacked
+
+    # ------------------------------------------------------ the log's own
+    def append(self, rec: WALRecord):
+        self.chunks[-1].append(rec)
+        self.n += 1
+
+    def seal(self):
+        """Pack the live tail (the segment just sealed) and open another."""
+        tail = self.chunks[-1]
+        if tail:
+            self.chunks[-1] = _Packed(tail)
+            self.packed += 1
+            self.chunks.append([])
+
+    def last(self) -> Optional[Tuple[str, int]]:
+        """(hash, lsn) of the last record, without unpacking anything."""
+        tail = self.chunks[-1]
+        if tail:
+            return tail[-1].hash, tail[-1].lsn
+        if len(self.chunks) == 1:
+            return None
+        prev = self.chunks[-2]
+        return prev.last if isinstance(prev, _Packed) else \
+            (prev[-1].hash, prev[-1].lsn)
+
+    def truncate(self, keep: int):
+        """Drop every record after the first ``keep``."""
+        while self.n > keep:
+            tail = self._live(-1)
+            drop = min(len(tail), self.n - keep)
+            del tail[len(tail) - drop:]
+            self.n -= drop
+            if self.n > keep:
+                self.chunks.pop()
+
+    def _live(self, ci: int) -> list:
+        chunk = self.chunks[ci]
+        if isinstance(chunk, _Packed):
+            chunk = self.chunks[ci] = chunk.records()
+            self.packed -= 1
+            self.unpacked += 1
+        return chunk
+
+    def _locate(self, i: int) -> Tuple[int, int]:
+        if i < 0:
+            i += self.n
+        if not 0 <= i < self.n:
+            raise IndexError("list index out of range")
+        start = self.n
+        for ci in range(len(self.chunks) - 1, -1, -1):
+            chunk = self.chunks[ci]
+            start -= chunk.n if isinstance(chunk, _Packed) else len(chunk)
+            if i >= start:
+                return ci, i - start
+        raise AssertionError("chunk lengths disagree with the count")
+
+    # ------------------------------------------------------- list surface
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self) -> Iterator[WALRecord]:
+        ci = 0
+        while ci < len(self.chunks):
+            yield from self._live(ci)
+            ci += 1
+
+    def __getitem__(self, i):
+        if not isinstance(i, slice):
+            ci, off = self._locate(i)
+            return self._live(ci)[off]
+        idx = range(self.n)[i]
+        if not idx:
+            return []
+        lo, hi = min(idx[0], idx[-1]), max(idx[0], idx[-1]) + 1
+        part, start = [], 0
+        for ci in range(len(self.chunks)):
+            chunk = self.chunks[ci]
+            end = start + (chunk.n if isinstance(chunk, _Packed)
+                           else len(chunk))
+            if end > lo:
+                part += self._live(ci)[max(lo - start, 0):hi - start]
+            if end >= hi:
+                break
+            start = end
+        return part if idx.step == 1 else [part[j - lo] for j in idx]
+
+    def __setitem__(self, i: int, rec: WALRecord):
+        ci, off = self._locate(i)
+        self._live(ci)[off] = rec
+
+    def __delitem__(self, i: int):
+        ci, off = self._locate(i)
+        chunk = self._live(ci)
+        del chunk[off]
+        self.n -= 1
+        if not chunk and ci != len(self.chunks) - 1:
+            del self.chunks[ci]
+
+
 class SegmentedWAL:
     """Segmented append-only hash-chained log (see module docstring)."""
 
@@ -107,24 +261,35 @@ class SegmentedWAL:
         if segment_size < 1:
             raise ValueError("segment_size must be >= 1")
         self.segment_size = int(segment_size)
-        self._records: List[WALRecord] = []
+        self._records = _Records()
         self._segments: List[SegmentMeta] = [SegmentMeta(0, 0)]
+
+    @property
+    def packed_segments(self) -> int:
+        """Sealed segments held packed now."""
+        return self._records.packed
+
+    @property
+    def unpacked_segments(self) -> int:
+        """Packed segments that a read has unpacked, since the log began."""
+        return self._records.unpacked
 
     # ------------------------------------------------------------ append
     def append(self, kind: str, tid: int, payload: dict) -> WALRecord:
-        if self._records:
-            prev, lsn = self._records[-1].hash, self._records[-1].lsn + 1
-        else:
-            prev, lsn = GENESIS, 0
+        recs = self._records
+        last = recs.last()
+        prev, lsn = (last[0], last[1] + 1) if last else (GENESIS, 0)
         seg = self._segments[-1]
         if seg.count >= self.segment_size:          # seal full segment, roll
             seg.sealed = True
-            seg.seal_hash = self._records[-1].hash
+            seg.seal_hash = prev
+            recs.seal()
             seg = SegmentMeta(seg.index + 1, lsn)
             self._segments.append(seg)
-        rec = WALRecord(lsn, kind, int(tid), payload, prev,
-                        record_hash(prev, lsn, kind, int(tid), payload))
-        self._records.append(rec)
+        tid = int(tid)
+        rec = WALRecord(lsn, kind, tid, payload, prev,
+                        record_hash(prev, lsn, kind, tid, payload))
+        recs.append(rec)
         seg.count += 1
         return rec
 
@@ -146,9 +311,10 @@ class SegmentedWAL:
         byte (hash mismatch), reordering/deletion (chain break or LSN gap),
         or truncation of a sealed segment.  A torn open-tail segment is a
         valid prefix and passes.  Returns a summary dict on success."""
+        records = list(self._records)
         prev = GENESIS
         expected_lsn = 0
-        for r in self._records:
+        for r in records:
             if r.lsn != expected_lsn:
                 raise WALIntegrityError(
                     f"lsn gap at record {r.lsn} (expected {expected_lsn}): "
@@ -166,7 +332,7 @@ class SegmentedWAL:
             expected_lsn += 1
         pos = 0
         for seg in self._segments:
-            recs = self._records[pos:pos + seg.count]
+            recs = records[pos:pos + seg.count]
             if len(recs) != seg.count:
                 raise WALIntegrityError(
                     f"segment {seg.index} holds {len(recs)} records, "
@@ -181,11 +347,11 @@ class SegmentedWAL:
                         f"sealed segment {seg.index} final hash mismatch: "
                         f"tail of a sealed segment was rewritten")
             pos += seg.count
-        if pos != len(self._records):
+        if pos != len(records):
             raise WALIntegrityError(
-                f"{len(self._records) - pos} records beyond the last "
+                f"{len(records) - pos} records beyond the last "
                 f"segment boundary: metadata truncation")
-        return dict(ok=True, records=len(self._records),
+        return dict(ok=True, records=len(records),
                     segments=len(self._segments),
                     sealed=sum(1 for s in self._segments if s.sealed))
 
@@ -198,7 +364,7 @@ class SegmentedWAL:
         n = min(int(n), seg.count)
         if n <= 0:
             return 0
-        del self._records[len(self._records) - n:]
+        self._records.truncate(len(self._records) - n)
         seg.count -= n
         return n
 
@@ -213,11 +379,12 @@ class SegmentedWAL:
                                        count=s.count, sealed=s.sealed,
                                        seal_hash=s.seal_hash)
                                   for s in self._segments])
+        records = list(self._records)
         pos = 0
         for seg in self._segments:
             fname = os.path.join(path, f"seg-{seg.index:05d}.jsonl")
             with open(fname, "w") as f:
-                for r in self._records[pos:pos + seg.count]:
+                for r in records[pos:pos + seg.count]:
                     f.write(json.dumps(
                         dict(lsn=r.lsn, kind=r.kind, tid=r.tid,
                              payload=r.payload, prev=r.prev, hash=r.hash),
@@ -226,7 +393,7 @@ class SegmentedWAL:
             pos += seg.count
         with open(os.path.join(path, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
-        return dict(records=len(self._records), segments=len(self._segments))
+        return dict(records=len(records), segments=len(self._segments))
 
     @classmethod
     def load(cls, path: str) -> "SegmentedWAL":
@@ -236,7 +403,6 @@ class SegmentedWAL:
         wal._segments = [SegmentMeta(m["index"], m["start_lsn"], m["count"],
                                      m["sealed"], m["seal_hash"])
                          for m in manifest["segments"]]
-        wal._records = []
         for seg in wal._segments:
             fname = os.path.join(path, f"seg-{seg.index:05d}.jsonl")
             if not os.path.exists(fname):
@@ -249,6 +415,8 @@ class SegmentedWAL:
                     wal._records.append(WALRecord(
                         d["lsn"], d["kind"], d["tid"], d["payload"],
                         d["prev"], d["hash"]))
+            if seg.sealed:
+                wal._records.seal()
         return wal
 
 

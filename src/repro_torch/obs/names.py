@@ -76,6 +76,10 @@ H_RETRIES = "txn_retries"
 G_INFLIGHT = "inflight_batches"
 G_SHARD_DISPATCHES = "shard_dispatches"
 G_WAL_RECORDS = "wal_records"
+# The port's WAL only (``SegmentedWAL``): sealed segments held packed, and
+# packed segments a read has unpacked.
+G_WAL_PACKED = "wal_packed_segments"
+G_WAL_UNPACKED = "wal_unpacked_segments"
 G_UTILIZATION = "resource_utilization"
 C_ARRIVALS = "arrivals_total"
 C_DROPPED = "admission_dropped_total"

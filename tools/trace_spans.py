@@ -15,6 +15,10 @@ metrics, one JSON line a run:
   path's ``device`` spans outside their ``switch-sub`` (as read, and
   beyond the skew), and the card's idle seconds by the innermost span
   open;
+* the collector's passes in the window (``run.collector``), and the
+  WAL's counters (``Cluster.wal_counters``, absent from a program without
+  them): the segments unpacked inside the window, those held packed at
+  its end, and the share of the logged records they hold;
 * ``--costs``: the host us a timed dispatch adds (a B = 1 sync dispatch
   of the TPC-C cell's shape, a B = 512 deferred one of the YCSB cell's,
   timed and untimed in turns; ``settle`` after each turn, outside the
@@ -74,9 +78,11 @@ def traced(name, seed, seconds, device, events, warmup=None):
               4 * harness.traffic_txns(cell, seconds, run.warmup))
     tracer = run.cluster.tracer
     tracer.device_events = events
+    wal0 = wal_counters(run.cluster)
     t0 = time.perf_counter()
     w = run.window()
     t1 = time.perf_counter()
+    wal1 = wal_counters(run.cluster)
     t_settle = time.perf_counter()
     left_open = tracer.settle()
     settle_s = time.perf_counter() - t_settle
@@ -111,7 +117,26 @@ def traced(name, seed, seconds, device, events, warmup=None):
     # the window's profiler set-up and reading fall outside every span
     line["profiler_own_s"] = run.profiler_s
     line["idle_by_span_s"] = S.idle_by_span(sp, t0, t1) if events else None
+    line["collector"] = run.collector
+    if wal1 is not None:
+        line["wal_unpacked_in_window"] = sum(wal1["unpacked"]) - sum(
+            wal0["unpacked"])
+        line["wal_packed_segments"] = wal1["packed"]
+        line["wal_packed_share"] = wal1["packed_records"] / max(
+            wal1["records"], 1)
     return line, run
+
+
+def wal_counters(c):
+    """The WAL's counters now, or None where the program has none."""
+    if not hasattr(c, "wal_counters"):
+        return None
+    from repro_torch.obs.names import G_WAL_PACKED, G_WAL_UNPACKED
+    got = c.wal_counters()
+    return dict(packed=got[G_WAL_PACKED], unpacked=got[G_WAL_UNPACKED],
+                packed_records=sum(n.wal.packed_segments
+                                   * n.wal.segment_size for n in c.nodes),
+                records=sum(len(n.wal) for n in c.nodes))
 
 
 def _us(fn, reps):
