@@ -26,7 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from p4bench import harness  # noqa: E402
-from p4bench.reference import compare, serial  # noqa: E402
+from p4bench.reference import compare  # noqa: E402
 
 
 def node_grouped(stream, batch: int) -> list:
@@ -43,11 +43,14 @@ def control_numbers(cell, seed: int, n: int) -> dict:
                                               harness.params(cell))
     keys, values = harness.initial(cell, seed)
     loaded = dict(zip(keys.tolist(), values.tolist()))
-    ref = serial.execute(stream, loaded)
-    ctl = serial.execute(stream, loaded, order=node_grouped(
+    reference = harness.reference(cell)
+    ref = reference.execute(stream, loaded)
+    ctl = reference.execute(stream, loaded, order=node_grouped(
         stream, cell["traffic"]["batch"]))
+    lens = np.where(ctl.committed, np.diff(stream.start), compare.GAVE_UP)
     return dict(results_bad=compare.results_bad(
-                    stream, ref, np.diff(stream.start), ctl.res),
+                    stream, ref, lens, ctl.res[np.repeat(
+                        ctl.committed, np.diff(stream.start))]),
                 values_bad=compare.values_bad(ref, ctl.values))
 
 

@@ -1,10 +1,11 @@
 """One run of a cell: set-up, the measured window, the check, the readings.
 
 Everything a cell needs is found by name: the cell and its metrics in
-``BENCHMARK.json``, its configuration in the file named there, its
-traffic in ``traffic/<mix>.json`` with the generator that file names, a
-per-layer metric's reader in ``metrics/<metric>.py`` and a kernel
-route's byte count in ``roofline/<route>.py``.
+``BENCHMARK.json``, its configuration in the file named there, its plain
+reference in the file the configuration names, its traffic in
+``traffic/<mix>.json`` with the generator that file names, a per-layer
+metric's reader in ``metrics/<metric>.py`` and a kernel route's byte
+count in ``roofline/<route>.py``.
 
 The program under test is ``repro_torch`` (``src/`` of the checkout); it
 is imported only inside the functions that drive it.
@@ -23,7 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
-from p4bench.reference import compare, serial
+from p4bench import host
+from p4bench.reference import compare
 from p4bench.traffic.stream import node_of
 
 BENCH = Path(__file__).resolve().parent
@@ -55,6 +57,13 @@ def load_cell(name: str, spec_path: Path = ROOT / "BENCHMARK.json") -> dict:
                 traffic=traffic, end_to_end=mine(spec["end_to_end"]),
                 per_layer=mine(spec["per_layer"]),
                 run_seconds=spec["run_seconds"])
+
+
+def reference(cell):
+    """The module of the plain reference the configuration names (a file
+    under the benchmark, ``p4bench/reference/serial.py`` say)."""
+    path = Path(cell["config"]["reference"]).with_suffix("")
+    return importlib.import_module(".".join(path.parts))
 
 
 def generator(cell):
@@ -160,6 +169,8 @@ class Run:
         self.warmup = t["warmup_batches"] if warmup_batches is None \
             else warmup_batches
         self.setup_parts = {}
+        self.cpus, self.look_at = [], 0.0   # the CPU run on, once a second
+        self.first_txn = 0                  # the window's first txn
 
     def _part(self, name, t0):
         self.setup_parts[name] = time.perf_counter() - t0
@@ -279,7 +290,10 @@ class Run:
             self.flat.append(flat)
 
     def _drive(self, until: float):
-        while time.perf_counter() < until:
+        while (now := time.perf_counter()) < until:
+            if now >= self.look_at:
+                self.cpus.append(host.cpu_now())
+                self.look_at = now + 1.0
             self._one()
 
     # ------------------------------------------------------------ window
@@ -301,6 +315,8 @@ class Run:
                 passes.append((started[0], time.perf_counter() - started[0],
                                info["generation"]))
         gc.callbacks.append(collector)
+        self.cpus, self.look_at = [], 0.0
+        before = self._host()
         try:
             t0 = time.perf_counter()
             end = t0 + self.seconds
@@ -314,6 +330,7 @@ class Run:
             window_s = time.perf_counter() - t0
         finally:
             gc.callbacks.remove(collector)
+        self.host = dict(cpus=self.cpus, start=before, end=self._host())
         self._pack(final=True)
         self.first_txn = sum(len(b) for b in self.batches[:first])
         self.txns = sum(len(b) for b in self.batches[first:self.next])
@@ -331,6 +348,18 @@ class Run:
         # set-up, teardown and reading, which run between its spins
         return dict(window_s=window_s, txns=self.txns,
                     traced_s=window_s - self.profiler_s)
+
+    def _host(self) -> dict:
+        """The host's readings at one end of the window."""
+        node = local = None
+        if self.device.type == "cuda":
+            import torch
+            node, local = host.card_cpus(host.bus_id_of(
+                torch.cuda.get_device_properties(self.device)))
+        return dict(card_node=node, card_cpus=local,
+                    affinity=host.affinity(), mhz=host.mhz(local),
+                    usage=host.usage(), loadavg=host.loadavg(),
+                    steal=host.steal())
 
     def _profiled(self, end: float):
         from p4bench import probe
@@ -377,20 +406,23 @@ class Run:
         return dict(lens=np.concatenate(self.lens),
                     flat=np.concatenate(self.flat), held=held, stray=stray,
                     wals=[list(n.wal) for n in c.nodes],
-                    commits=c.stats.get("commits", 0))
+                    commits=c.stats.get("commits", 0), switch_keys=keys)
 
     def check(self, got: dict) -> dict:
-        """The numbers compared, for every txn of the warm-up and window."""
+        """The numbers compared, for every txn of the warm-up and window;
+        ``failed`` is left for the result line."""
         stream = self.stream.prefix(got["lens"].size)
         keys, values = self.initial
-        ref = serial.execute(stream, dict(zip(keys.tolist(),
-                                              values.tolist())))
+        ref = reference(self.cell).execute(
+            stream, dict(zip(keys.tolist(), values.tolist())),
+            switch_keys=got["switch_keys"])
+        self.failed = compare.unanswered(ref, got["lens"], self.first_txn)
         return dict(
             results_bad=compare.results_bad(stream, ref, got["lens"],
                                             got["flat"]),
             values_bad=compare.values_bad(ref, got["held"], got["stray"]),
             wal_bad=compare.wal_bad(stream, ref, got["wals"], TID0),
-            commits_gap=abs(got["commits"] - stream.n))
+            commits_gap=compare.commits_gap(ref, got["commits"]))
 
     # ------------------------------------------------------------ readings
     def evidence(self, w: dict) -> dict:
@@ -452,7 +484,7 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
     out = {"correct": correct, "attempted": w["txns"],
-           "failed": int((got["lens"][run.first_txn:] < 0).sum()),
+           "failed": run.failed,
            "metrics": metrics,
            "device": {"platform": "gpu", "kind": _device_kind(device),
                       "count": cell["chips"], "memory_peak_bytes": int(peak)}}
@@ -463,14 +495,14 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
         # what the host did, each second counted once: the warm path's
         # own time is its span less the builds and dispatches inside it
         sp = ev["spans"]
-        host = {k: sp.get(k, 0.0) for k in ("classify", "packet_build",
-                                            "dispatch", "drain")}
-        host["warm_self"] = sp.get("warm", 0.0) - sp.get("warm_inner", 0.0)
-        host["rest"] = ev["window_s"] - sum(host.values())
+        spent = {k: sp.get(k, 0.0) for k in ("classify", "packet_build",
+                                             "dispatch", "drain")}
+        spent["warm_self"] = sp.get("warm", 0.0) - sp.get("warm_inner", 0.0)
+        spent["rest"] = ev["window_s"] - sum(spent.values())
         out["breakdown"] = {
             "device_ops": [[k, t * 1e-6] for t, k, _ in
                            (p["rows"][:10] if p else [])],
-            "idle_gaps": sorted(([f"host {k}", v] for k, v in host.items()),
+            "idle_gaps": sorted(([f"host {k}", v] for k, v in spent.items()),
                                 key=lambda kv: -kv[1])[:10]}
     out["checks"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}
     info = ("setup " + ", ".join(f"{k} {v:.3f} s"
@@ -486,7 +518,27 @@ def measure(cell, seed: int, seconds: float, trace: bool, device,
             f"{[round(x, 3) for x in run.collector['per_second']]}")
     if trace:
         info += f"; batches in the traced window {len(ev['batch_s'])}"
-    return out, info
+    return out, info + "; " + host_summary(run.host)
+
+
+def host_summary(h: dict) -> str:
+    """The host's readings of a window, for the run's line."""
+    a, b = h["start"], h["end"]
+    used = {k: round(b["usage"][k] - a["usage"][k], 3) for k in a["usage"]}
+    return (f"host cpus in the window {h['cpus']}; affinity "
+            f"{a['affinity']}; card numa node {a['card_node']} local cpus "
+            f"{a['card_cpus']}; MHz at start "
+            f"{[round(v) for v in a['mhz'].values()]} at end "
+            f"{[round(v) for v in b['mhz'].values()]}; in the window cpu "
+            f"{used['user_s']} s user {used['system_s']} s system, "
+            f"{used['faults']} page faults, context switches "
+            f"{used['voluntary']} voluntary {used['involuntary']} "
+            f"involuntary; steal ticks {_less(b['steal'], a['steal'])}; "
+            f"loadavg at start {a['loadavg']} at end {b['loadavg']}")
+
+
+def _less(b, a):
+    return None if a is None or b is None else b - a
 
 
 def _device_kind(device):

@@ -1,11 +1,15 @@
 """The comparison that decides ``correct``: what the program served and
-holds after a run, against the serial reference (``serial.py``).
+holds after a run, against the plain reference the configuration names
+(``serial.py`` for both cells), which says per transaction whether it
+commits or a constraint refuses it.
 
 Four numbers, each an exact count with the limit 0:
 
 * ``results_bad``: transactions whose answers (a list of ints, in op
   order) differ from the reference's, or that gave up or never answered
-  (the answers packed by ``pack``);
+  (the answers packed by ``pack``) where the reference commits them; a
+  transaction that the reference refuses is right only where the
+  program gave up on it;
 * ``values_bad``: keys whose committed value as the program holds it (a
   register on the card for a key of the switch, the node's store for
   the rest) differs from the reference's final value, plus register
@@ -17,9 +21,10 @@ Four numbers, each an exact count with the limit 0:
   on its home node, whose answers are those ops' answers and whose GIDs
   follow admission order one by one; its other ops are the cold part:
   one ``write`` record (key, old, new) on the key's node for each key it
-  writes, and one ``commit`` on each node it touches;
+  writes, and one ``commit`` on each node it touches.  A refused
+  transaction has no record at all and takes no GID;
 * ``commits_gap``: committed transactions the program counted, less
-  those the reference commits (all of them).
+  those the reference commits.
 """
 from __future__ import annotations
 
@@ -32,43 +37,62 @@ from p4bench.traffic.stream import WRITES, node_of
 
 LIMITS = {"results_bad": 0, "values_bad": 0, "wal_bad": 0,
           "commits_gap": 0}
+GAVE_UP, UNANSWERED = -1, -2      # packed lengths of what is not a list
 
 
 def pack(answers):
-    """(lens, flat) of a list of answers: each one's length (-1 where it
-    is not a list of ints: gave up, or never answered) and their ints one
-    after another, as arrays the collector does not walk."""
-    lists = [a if isinstance(a, list) else None for a in answers]
+    """(lens, flat) of a list of answers: each one's length (``GAVE_UP``
+    where the program answered with no list, ``UNANSWERED`` where it
+    never answered or answered with something other than ints) and their
+    ints one after another, as arrays the collector does not walk."""
+    lists = [a if isinstance(a, list) else UNANSWERED if a is None
+             else GAVE_UP for a in answers]
     try:
         return _pack(lists)
     except (TypeError, ValueError, OverflowError):
-        return _pack([a if a is not None and all(
-            isinstance(x, (int, np.integer)) for x in a) else None
+        return _pack([a if not isinstance(a, list) or all(
+            isinstance(x, (int, np.integer)) for x in a) else UNANSWERED
             for a in lists])
 
 
 def _pack(lists):
-    lens = np.array([-1 if a is None else len(a) for a in lists], np.int64)
+    lens = np.array([len(a) if isinstance(a, list) else a for a in lists],
+                    np.int64)
     flat = np.fromiter(itertools.chain.from_iterable(
-        a for a in lists if a is not None), np.int64)
+        a for a in lists if isinstance(a, list)), np.int64)
     return lens, flat
 
 
 def results_bad(stream, ref, lens, flat) -> int:
     """Transactions of ``stream`` whose packed answers (``pack``) are not
     the reference's; a transaction past the answers counts as bad."""
-    want = np.diff(stream.start)
-    got = np.full(stream.n, -1, np.int64)
+    n_ops = np.diff(stream.start)
+    committed = ref.committed[:stream.n]
+    want = np.where(committed, n_ops, GAVE_UP)
+    got = np.full(stream.n, UNANSWERED, np.int64)
     m = min(stream.n, lens.size)
     got[:m] = lens[:m]
     ok = got == want
-    # the answers of the transactions whose lengths agree, side by side
+    # the answers of the committed transactions whose lengths agree, side
+    # by side
+    same = ok & committed
     took = np.zeros(lens.size, bool)
-    took[:m] = ok[:m]
+    took[:m] = same[:m]
     mine = flat[np.repeat(took, np.maximum(lens, 0))]
-    theirs = ref.res[np.repeat(ok, want)]
-    txn = np.repeat(np.nonzero(ok)[0], want[ok])
+    theirs = ref.res[np.repeat(same, n_ops)]
+    txn = np.repeat(np.nonzero(same)[0], n_ops[same])
     return int((~ok).sum() + np.unique(txn[mine != theirs]).size)
+
+
+def unanswered(ref, lens, first: int = 0) -> int:
+    """Transactions from ``first`` on that the reference commits and the
+    program gave no answer for (the result line's ``failed``); ``lens``
+    holds one length a transaction of the reference."""
+    return int((ref.committed[first:] & (lens[first:] < 0)).sum())
+
+
+def commits_gap(ref, commits: int) -> int:
+    return abs(commits - int(ref.committed.sum()))
 
 
 def values_bad(ref, held, stray: int = 0) -> int:
@@ -122,8 +146,12 @@ def wal_bad(stream, ref, wals, tid0: int) -> int:
     txn_ops = list(zip(ops, keys, stream.val.tolist()))
     start, home = stream.start.tolist(), stream.home.tolist()
     res, pre, post = ref.res.tolist(), ref.pre.tolist(), ref.post.tolist()
+    committed = ref.committed.tolist()
     gids = []                       # (txn, gid) of every switch part
     for i in range(stream.n):
+        if not committed[i]:
+            bad += bool(by_tid.pop(tid0 + i, ()))
+            continue
         s, e = start[i], start[i + 1]
         send = result = None
         writes, commits = [], []

@@ -12,7 +12,11 @@ look for a card (the CPU, the cells' own configurations, a short window).
 * an answer altered where it is produced: one answer of every dispatch's
   result plane is off by one.
 
-A cell on one card has no exchange between cards to leave out.
+A cell on one card has no exchange between cards to leave out.  And, on
+SmallBank at a small size (``test_p4bench_reference.smallbank_cell``),
+the faults a balance constraint can meet: a refused txn answered as
+committed, a committed one given up on, a refused one's ``write`` record
+left in the log.
 """
 import time
 
@@ -20,17 +24,23 @@ import numpy as np
 import pytest
 import torch
 from repro_torch.core import engine
+from repro_torch.db import dbms
+from repro_torch.db.conflict import GAVE_UP
 from repro_torch.db.dbms import Cluster
 
 from p4bench import control, harness
 from p4bench.reference import compare
+from p4bench.test_p4bench_reference import run_all, smallbank_cell
 
 CELLS = ["ycsb_a.allhot", "tpcc.paper"]
 SEED = 2 ** 31 + 11
 
 
-def _measure(name):
+def _measure(name, speedup=1):
+    """A run of the cell, whose traffic pool the window cannot use up
+    where a fault makes each batch ``speedup`` times as cheap."""
     cell = harness.load_cell(name)
+    cell["traffic"]["max_txn_per_s"] *= speedup
     out, _ = harness.measure(cell, SEED, 0.5, False, torch.device("cpu"),
                              time.perf_counter(), warmup_batches=1)
     return out["correct"], {k: v["value"] for k, v in out["checks"].items()}
@@ -58,6 +68,7 @@ def _unchanged_state(monkeypatch):
 
 
 def _half_batch(monkeypatch):
+    """Each batch runs half its txns: twice the batches a window."""
     run_batch = Cluster.run_batch
 
     def half(self, txns, *a, **kw):
@@ -83,6 +94,54 @@ def _altered_answer(monkeypatch):
     (_altered_answer, "results_bad")])
 def test_fault_is_not_correct(monkeypatch, name, fault, caught_by):
     fault(monkeypatch)
-    correct, checks = _measure(name)
+    correct, checks = _measure(name, 2 if fault is _half_batch else 1)
     assert not correct and checks[caught_by] > 0, checks
     assert np.isfinite(list(checks.values())).all()
+
+
+def _with_retries(monkeypatch, change):
+    """``_run_with_retries`` answering ``change(txn, answer)``."""
+    run = Cluster._run_with_retries
+    monkeypatch.setattr(Cluster, "_run_with_retries",
+                        lambda self, txn, *a, **kw:
+                        change(txn, run(self, txn, *a, **kw)))
+
+
+def _refused_committed(monkeypatch):
+    _with_retries(monkeypatch, lambda txn, out:
+                  [0] * len(txn.ops) if out is GAVE_UP else out)
+
+
+def _committed_gave_up(monkeypatch):
+    _with_retries(monkeypatch, lambda txn, out:
+                  GAVE_UP if any(o == dbms.CADD for o, _, _ in txn.ops)
+                  else out)
+
+
+def _refused_write_logged(monkeypatch):
+    exec_on_nodes = Cluster._exec_on_nodes
+
+    def logged(self, txn, *a, **kw):
+        try:
+            return exec_on_nodes(self, txn, *a, **kw)
+        except dbms.Abort:
+            o, k, v = next(op for op in txn.ops if op[0] == dbms.CADD)
+            node = self.nodes[dbms.node_of(k)]
+            node.log("write", txn.tid, key=k, old=node.store[k],
+                     new=node.store[k] + v)
+            raise
+    monkeypatch.setattr(Cluster, "_exec_on_nodes", logged)
+
+
+@pytest.mark.parametrize("fault,caught_by", [
+    (_refused_committed, ("results_bad",)),
+    (_committed_gave_up, ("results_bad", "failed")),
+    (_refused_write_logged, ("wal_bad",))])
+def test_refusal_fault_is_not_correct(monkeypatch, fault, caught_by):
+    cell = smallbank_cell(monkeypatch, async_hot=False)
+    fault(monkeypatch)
+    run, got = run_all(cell, SEED, 640)
+    numbers = run.check(got)
+    assert compare.judge(numbers)[0] is False, numbers
+    numbers["failed"] = run.failed
+    assert all(numbers[k] > 0 for k in caught_by), numbers
